@@ -39,6 +39,8 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-process / long-running integration tests")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device and nvcc (the port's kernels)")
 
 
 @pytest.fixture(autouse=True, scope="module")

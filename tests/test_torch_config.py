@@ -1,0 +1,79 @@
+"""The port's config is a field-for-field copy of the JAX package's, and
+``interop`` carries numpy state and JAX configs into the port."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import torch_parity  # noqa: F401  (one torch thread per worker)
+from twoace_tpu import config as jcfg
+from twoace_tpu_torch import config as tcfg
+from twoace_tpu_torch import interop
+
+CLASSES = ["AdmmConfig", "SpectralProfileConfig", "ArrayConfig",
+           "ChannelConfig"]
+
+
+@pytest.mark.parametrize("name", CLASSES)
+def test_config_defaults_match_jax(name):
+    j, t = getattr(jcfg, name), getattr(tcfg, name)
+    assert [f.name for f in dataclasses.fields(t)] == \
+        [f.name for f in dataclasses.fields(j)]
+    assert dataclasses.asdict(t()) == dataclasses.asdict(j())
+    assert t.__dataclass_params__.frozen
+
+
+def test_array_config_properties_match_jax():
+    for kw in ({}, dict(nt=4, nr=8, nqt=7)):
+        j, t = jcfg.ArrayConfig(**kw), tcfg.ArrayConfig(**kw)
+        assert (t.n, t.grid_t, t.grid_r) == (j.n, j.grid_t, j.grid_r)
+        assert t.k_d == pytest.approx(j.k_d, rel=1e-15)
+    assert tcfg.DEFAULT_LAMBDA == jcfg.DEFAULT_LAMBDA
+    assert tcfg.DEFAULT_SPACING == jcfg.DEFAULT_SPACING
+
+
+def test_admm_config_from_jax_dict_round_trip():
+    j = jcfg.AdmmConfig(maxiter=77, warm_iters=5, stage1_maxiter=30,
+                        stage2_maxiter=None, quality_threshold=0.7,
+                        profile=jcfg.SpectralProfileConfig(
+                            ladder="v1", fractions=(0.7, 0.8, 0.9, 0.99)))
+    t = interop.admm_config_from_dict(dataclasses.asdict(j))
+    assert isinstance(t, tcfg.AdmmConfig)
+    assert isinstance(t.profile, tcfg.SpectralProfileConfig)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    hash(t)                       # still frozen and hashable
+
+
+def test_pair_and_ladder_from_numpy_round_trip():
+    rng = np.random.default_rng(0)
+    re, im = torch_parity.rand_pair_np(rng, 3, 5)
+    p = interop.pair_from_numpy(re, im)
+    assert p.re.dtype == torch.float32 and p.shape == (3, 5)
+    np.testing.assert_array_equal(p.re.numpy(), re)
+    np.testing.assert_array_equal(p.im.numpy(), im)
+    pc = interop.pair_from_numpy(re + 1j * im, None)
+    np.testing.assert_array_equal(pc.im.numpy(), im)
+    lad = interop.ladder_from_numpy([3, 4, 8, 16], [0.9, 0.95, 0.995, 0.0])
+    assert lad.ranks.dtype == torch.float32
+    np.testing.assert_array_equal(lad.fracs.numpy(),
+                                  np.float32([0.9, 0.95, 0.995, 0.0]))
+
+
+def test_port_imports_no_jax():
+    """The port must run where jax is absent: importing it loads no jax
+    module (checked in a fresh interpreter)."""
+    code = ("import sys, twoace_tpu_torch, twoace_tpu_torch.interop, "
+            "twoace_tpu_torch.ops.pair_solver, "
+            "twoace_tpu_torch.utils.metrics; "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m.startswith('twoace_tpu.')]; "
+            "assert not bad, bad")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=root,
+                   env=env, timeout=120)

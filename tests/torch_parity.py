@@ -1,0 +1,103 @@
+"""Shared helpers of the ``test_torch_*`` files: the same numpy inputs go
+to the JAX package and to its PyTorch port.
+
+Both packages see float32 data made from a fixed seed with numpy; JAX
+arrays and torch tensors are built from those arrays and compared back in
+numpy.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from twoace_tpu.ops.cplx import Pair as JPair
+from twoace_tpu_torch.ops.cplx import Pair as TPair
+
+# tier-1 runs several pytest workers: one torch thread each
+torch.set_num_threads(1)
+
+
+def require_cuda():
+    """Skip unless a CUDA device is present (decided at run time)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+
+
+def rand_pair_np(rng, *shape):
+    return (rng.normal(size=shape).astype(np.float32),
+            rng.normal(size=shape).astype(np.float32))
+
+
+def jpair(re, im=None) -> JPair:
+    if im is None:
+        re, im = np.real(re), np.imag(re)
+    return JPair(jnp.asarray(re, jnp.float32), jnp.asarray(im, jnp.float32))
+
+
+def tpair(re, im=None, device=None) -> TPair:
+    if im is None:
+        re, im = np.real(re), np.imag(re)
+    return TPair(torch.tensor(np.asarray(re, np.float32), device=device),
+                 torch.tensor(np.asarray(im, np.float32), device=device))
+
+
+def np_pair(p):
+    """numpy (re, im) of a JAX or torch pair."""
+    to = (lambda t: t.detach().cpu().numpy()) if isinstance(
+        p.re, torch.Tensor) else np.asarray
+    return to(p.re), to(p.im)
+
+
+def assert_pair_close(got, want, atol, rtol=0.0, err_msg=""):
+    for g, w in zip(np_pair(got), np_pair(want)):
+        np.testing.assert_allclose(g, w, atol=atol, rtol=rtol,
+                                   err_msg=err_msg)
+
+
+def steer(nn, ang):
+    return np.exp(1j * np.pi * np.arange(nn) * np.sin(ang)) / np.sqrt(nn)
+
+
+def codebook(rng, m, n):
+    bits = rng.integers(0, 4, (m, n))
+    return (np.exp(1j * bits * (np.pi / 2)) / np.sqrt(n)).astype(np.complex64)
+
+
+def nmse_db(x_est, x_gt):
+    c = np.vdot(x_est, x_gt) / max(np.vdot(x_est, x_est).real, 1e-30)
+    err = np.linalg.norm(x_gt - c * x_est) ** 2 / np.linalg.norm(x_gt) ** 2
+    return 10 * np.log10(max(err, 1e-30))
+
+
+def jax_first_pass(key, a, b_batch, nt, nr, cfg):
+    """The JAX batch solver's first stage with its own key derivation
+    (``solve_lowrank_multi_pair_batch``): returns numpy
+    ``(splits, xs (B, R, r, n) pair, q (B, R))``."""
+    from twoace_tpu.ops import pair_solver as jps
+    from twoace_tpu.ops.prox import profile_ladder_arrays
+
+    batch, m = b_batch.shape
+    n = a.shape[1]
+    n_restarts = cfg.n_restarts
+    keys = jax.random.split(jax.random.fold_in(key, 7), batch)
+    k_inits = jax.vmap(lambda ki: jnp.stack(
+        [jax.random.split(jax.random.fold_in(ki, i))[1]
+         for i in range(n_restarts)]))(keys)
+    splits = [jps._split(jax.random.split(jax.random.fold_in(key, i))[0], m,
+                         cfg.cc_frac) for i in range(n_restarts)]
+    trains = jnp.stack([t for t, _ in splits])
+    tests = jnp.stack([t for _, t in splits])
+    m_act = int(np.sum(b_batch[0] > 0))
+    pl = cfg.profile
+    lad = profile_ladder_arrays(nt, nr, int(np.floor(m_act * cfg.cc_frac)),
+                                n, False, pl.rank_mults, pl.fractions,
+                                mode=pl.ladder)
+    with jax.default_matmul_precision(cfg.matmul_precision):
+        _, q, _, xs, *_ = jps._batch_first_pass(
+            k_inits, jpair(a), jnp.asarray(b_batch, jnp.float32), trains,
+            tests, lad, nt=nt, nr=nr, cfg=cfg, prox_kind="spectral_profile",
+            eig_mode="perturb", m_eff=m_act)
+    return ((np.asarray(trains), np.asarray(tests)), np_pair(xs),
+            np.asarray(q))

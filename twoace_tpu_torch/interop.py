@@ -1,0 +1,40 @@
+"""Carry state from numpy (and the JAX package's configs) into the port.
+
+Imports no jax: the JAX side hands over numpy arrays and
+``dataclasses.asdict`` of its configs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .config import AdmmConfig, SpectralProfileConfig
+from .ops.cplx import LadderArrays, Pair
+
+
+def pair_from_numpy(re, im, device=None) -> Pair:
+    """A float32 Pair from two numpy arrays (or one complex array as
+    ``re`` with ``im=None``)."""
+    if im is None:
+        re, im = np.real(re), np.imag(re)
+    return Pair(torch.as_tensor(np.asarray(re, np.float32), device=device),
+                torch.as_tensor(np.asarray(im, np.float32), device=device))
+
+
+def ladder_from_numpy(ranks, fracs, device=None) -> LadderArrays:
+    return LadderArrays(
+        torch.as_tensor(np.asarray(ranks, np.float32), device=device),
+        torch.as_tensor(np.asarray(fracs, np.float32), device=device))
+
+
+def admm_config_from_dict(d: dict) -> AdmmConfig:
+    """The port's AdmmConfig from ``dataclasses.asdict`` of the JAX
+    package's ``AdmmConfig``."""
+    d = dict(d)
+    prof = d.pop("profile", None)
+    if isinstance(prof, dict):
+        prof = SpectralProfileConfig(
+            **{k: tuple(v) if isinstance(v, list) else v
+               for k, v in prof.items()})
+    return AdmmConfig(**d, **({} if prof is None else {"profile": prof}))

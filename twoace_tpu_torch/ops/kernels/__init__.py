@@ -1,0 +1,24 @@
+"""Hand-written CUDA kernels of the solver loop, each beside its plain
+PyTorch version.  Port of ``twoace_tpu.ops.pallas.kernels``:
+
+- :func:`fused_prox_dual_t` (K1, ``csrc/prox_dual.cu``);
+- :func:`fused_zprox_t` (K2, ``csrc/zprox.cu``), which also takes the
+  place of the lane-packed ``fused_zprox_batch``.
+
+Each wrapper counts its launches in a plain integer attribute
+``.launches``; a CPU tensor takes the plain version and counts nothing.
+"""
+
+from .prox_dual import fused_prox_dual_t, prox_dual_t_plain  # noqa: F401
+from .zprox import fused_zprox_t, zprox_t_plain  # noqa: F401
+
+KERNELS = (fused_prox_dual_t, fused_zprox_t)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}

@@ -1,0 +1,117 @@
+"""Build and load the port's CUDA kernels, and check what their wrappers
+pass them.
+
+``twoace_tpu_torch/csrc/*.cu`` are compiled at first use with ``nvcc``
+into one shared library with a plain C interface, written to
+``twoace_tpu_torch/_build/`` (git-ignored) under a name keyed by a hash of
+the sources and the flags, and loaded with ``ctypes``.  Nothing is built
+when a module is imported: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures of the exported functions; every pointer and the stream are
+# c_void_p so ctypes does not cut them to 32 bits
+SIGNATURES = {
+    "twoace_prox_dual_t": [_P] * 10 + [_I, _I, _I, _I, _P],
+    "twoace_zprox_t": [_P] * 10 + [_I, _I, _I, _I, _P],
+}
+
+_lib = None
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libtwoace_kernels-{h.hexdigest()[:16]}.so"
+
+
+def nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME:
+        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build() -> Path:
+    """Compile the sources if no library for their hash exists yet."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
+                               + proc.stdout + proc.stderr)
+        os.replace(tmp, out)            # atomic: readers never see a partial
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def check_inputs(tensors: dict, device) -> None:
+    """Raise unless every ``name: (tensor, shape)`` is a contiguous float32
+    tensor of that shape on ``device``: what the kernels take."""
+    for name, (t, shape) in tensors.items():
+        if t.device != device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: need float32 on {device}, got "
+                             f"{t.dtype} on {t.device}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: need shape {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
