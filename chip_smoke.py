@@ -7,14 +7,21 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 
   0. device: requires CUDA; prints nvidia-smi's name and power limit, the
      torch and CUDA versions and ``nvcc --version``;
-  1. build: compiles ``twoace_tpu_torch/csrc/*.cu`` into the git-ignored
-     ``twoace_tpu_torch/_build/``;
+  1. build: compiles ``twoace_tpu_torch/csrc/*.cu`` (one nvcc per source,
+     in parallel) into the git-ignored ``twoace_tpu_torch/_build/``;
   2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes, with CUDA-event times of both;
-  3. the slice: ``solve_lowrank_multi_pair_batch`` on the bench.py solve
-     workload (seed 1, 64 two-path 16x16 channels, one shared 2-bit
+     main path's shapes, with CUDA-event times of both and the least time
+     the card could take for the same work;
+  3. the batch slice: ``solve_lowrank_multi_pair_batch`` on the bench.py
+     solve workload (seed 1, 64 two-path 16x16 channels, one shared 2-bit
      codebook, m = 1024, maxiter 500, warm_iters 80, pass caps 120/160),
-     once to warm up and once timed, with the kernels' launch counts.
+     once to warm up and once timed, with K1's and K2's launch counts;
+  4. the single-recovery slice: ``solve_lowrank_multi_pair`` at the cold
+     config (maxiter 500) through bench.py's single-latency codebook (seed
+     3, 16x16, m = 1024): one warm-up and ten timed solves of bench.py's
+     random complex x, then of a two-path channel, with K3's launch count;
+     then one anchored ``refine_lowrank_pair`` seeded by the two-path
+     result, which runs K1 and K2.
 
 The last three lines are a JSON summary of the kernels, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
@@ -34,10 +41,14 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from twoace_tpu_torch import interop  # noqa: E402
 from twoace_tpu_torch.config import AdmmConfig  # noqa: E402
 from twoace_tpu_torch.ops.cplx import LadderArrays, Pair  # noqa: E402
+from twoace_tpu_torch.ops import pair_solver  # noqa: E402
 from twoace_tpu_torch.ops.kernels import (  # noqa: E402
-    _build, fused_prox_dual_t, fused_zprox_t, launch_counts,
-    prox_dual_t_plain, reset_launch_counts, zprox_t_plain)
-from twoace_tpu_torch.ops.pair_solver import solve_lowrank_multi_pair_batch  # noqa: E402
+    _build, fused_infer_admm, fused_prox_dual_t, fused_zprox_t,
+    infer_admm_plain, launch_counts, prox_dual_t_plain, reset_launch_counts,
+    zprox_t_plain)
+from twoace_tpu_torch.ops.pair_solver import (  # noqa: E402
+    refine_lowrank_pair, solve_lowrank_multi_pair,
+    solve_lowrank_multi_pair_batch)
 from twoace_tpu_torch.ops.prox import profile_ladder_arrays  # noqa: E402
 from twoace_tpu_torch.utils.metrics import nmse_h_projection  # noqa: E402
 
@@ -51,6 +62,23 @@ M_TRAIN = int(np.floor(M * 0.95))            # 972, the first-pass train split
 LANES = SOLVE_BATCH * RESTARTS               # 192
 K1_TOL = dict(rtol=1e-5, atol=1e-6)
 K2_ATOL = 5e-5
+#: K3 against its plain version: max |difference| over max |plain| of
+#: opt_x and opt_y after K3_TRIPS trips.  Measured 5e-6 to 7e-6 on the
+#: H100 (chip run, PR 2).  The check starts from a warm lane state (50
+#: first-pass trips) at mu0 = K3_MU0: from a cold start, and in the
+#: per-column pass at small mu, the loop amplifies float32 rounding (the
+#: plain version on the CPU and on the card part as far within 10 trips)
+#: and the argmin column can flip, so no tolerance would hold there.
+K3_RTOL = 1e-4
+K3_TRIPS = 30
+K3_WARM = 50
+K3_MU0 = 0.4
+SINGLE_REPS = 10
+
+#: H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 flop/s
+#: outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12
 
 
 def phase0_device():
@@ -96,6 +124,23 @@ def max_err(got, want):
     return max(float((g - w).abs().max()) for g, w in zip(got, want))
 
 
+def nbytes(*ts):
+    """Bytes of the tensors (Pairs and LadderArrays count both halves)."""
+    flat = []
+    for t in ts:
+        flat.extend(t if isinstance(t, tuple) else (t,))
+    return sum(t.numel() * t.element_size() for t in flat)
+
+
+def bound(n_bytes, flops):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the flops over the float32 rate, in ms."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FP32 * 1e3
+    return (dict(bound_ms=t_bytes, bound_by="bytes") if t_bytes >= t_ops
+            else dict(bound_ms=t_ops, bound_by="operations"))
+
+
 def phase2_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -133,9 +178,13 @@ def phase2_kernels():
             print(f"[2 K1 fused_prox_dual_t] lanes {LANES} r {R} m {m} "
                   f"per_entry {per_entry}: max_abs_err {err:.3e} | kernel "
                   f"{ms:.4f} ms | plain {plain:.4f} ms", flush=True)
+    # bound at the row-form m 972 shape: 4 planes in, 4 out, b and mu;
+    # about 16 flops per entry
+    k1_bytes = (8 * LANES * R * M_TRAIN + LANES * M_TRAIN + LANES) * 4
     summary["fused_prox_dual_t"] = dict(
         max_abs_err=max(errs), ms=times[(M_TRAIN, False)][0],
-        plain_ms=times[(M_TRAIN, False)][1])
+        plain_ms=times[(M_TRAIN, False)][1],
+        **bound(k1_bytes, 16 * LANES * R * M_TRAIN), library_ms=None)
 
     # K2: warm basis from a cold eigh of a perturbed z; the lanes mix the
     # normal train-split ladder (one f = 0 pad), the rank-1 ladder (three
@@ -166,22 +215,133 @@ def phase2_kernels():
     print(f"[2 K2 fused_zprox_t] lanes {LANES} r {R} nt=nr={NR}: "
           f"max_abs_err {err:.3e} (ladder moved z by {moved:.3f}) | kernel "
           f"{ms:.4f} ms | plain {plain:.4f} ms", flush=True)
-    summary["fused_zprox_t"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    rows = R * NT
+    k2_flops = LANES * (2 * rows * NR * NR * 8 + 7 * NR ** 3 * 8)
+    summary["fused_zprox_t"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain,
+        **bound(nbytes(z, v0, lad, zn, vn), k2_flops), library_ms=None)
+    summary["fused_infer_admm"] = phase2_k3()
     return summary
 
 
-def build_solve_problem(seed=1):
-    """bench.py's solve workload, rebuilt with numpy: SOLVE_BATCH two-path
+def k3_flops(it, r, m, n):
+    """Flops of the trips the lanes ran: the four complex products in
+    Karatsuba form, the Z-prox (panel Gram, delta apply, nr x nr chain)
+    and the prox, per trip."""
+    per_trip = (6 * r * (3 * m * n + n * n) + 2 * r * n * NR * 8
+                + 7 * NR ** 3 * 8 + 16 * r * m)
+    return int(it.sum()) * per_trip
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want| over opt_x and opt_y."""
+    return max(float((g.cpu() - w.cpu()).abs().max() / w.abs().max().cpu())
+               for gp, wp in zip(got[:2], want[:2]) for g, w in zip(gp, wp))
+
+
+def cold_divergence(args, loop, trips=10):
+    """From a cold start (spectral init, mu0 1e-3) the loop amplifies
+    float32 rounding: print how far K3 and the plain version part after
+    ``trips`` trips, beside how far the plain version on the CPU and on
+    the card part.  No tolerance is held here."""
+    def cpu(t):
+        if isinstance(t, tuple):
+            return type(t)(*(v.cpu() for v in t))
+        return t.cpu()
+
+    kw = dict(scale_by_row=True, maxiter=trips, **loop)
+    got = fused_infer_admm(*args, **kw)
+    want = infer_admm_plain(*args, **kw)
+    want_cpu = infer_admm_plain(*(cpu(t) for t in args), **kw)
+    print(f"[2 K3 cold start] {trips} trips from the spectral init at mu0 "
+          f"1e-3, m {M_TRAIN}: K3 vs plain rel err "
+          f"{rel_err(got, want):.3e} | plain on the CPU vs plain on the "
+          f"card {rel_err(want_cpu, want):.3e} (reported, not held)",
+          flush=True)
+
+
+def phase2_k3():
+    """K3 on 3 lanes (one per restart), r 20, 16x16, at the train split's
+    m 972 and the full m 1024, both passes, K3_TRIPS trips with zero
+    tolerances so every trip runs, from a warm lane state."""
+    lanes = RESTARTS
+    out = {}
+    for m in (M_TRAIN, M):
+        a, b, _ = build_solve_problem(seed=5, batch=lanes, m=m)
+        ap = Pair(*(torch.as_tensor(np.ascontiguousarray(v), dtype=torch.float32,
+                                    device="cuda")[None].expand(lanes, m, N)
+                    .contiguous() for v in (a.real, a.imag)))
+        bt = torch.as_tensor(b, dtype=torch.float32, device="cuda")[:, None]
+        bt = bt / torch.linalg.vector_norm(bt, dim=-1, keepdim=True)
+        lad = profile_ladder_arrays(NT, NR, m, N, False, device="cuda")
+        lad = LadderArrays(lad.ranks.expand(lanes, -1).contiguous(),
+                           lad.fracs.expand(lanes, -1).contiguous())
+        lad3 = LadderArrays(lad.ranks[:, None], lad.fracs[:, None])
+        u = pair_solver.precompute_u_pair(ap)
+        x0 = pair_solver.spectral_initialize_pair(
+            ap, bt, R, torch.Generator().manual_seed(5))
+
+        def prepared(x, sbr, mu0):
+            y0, z0, v0 = pair_solver.admm_init_pair(
+                ap, bt, x, scale_by_row=sbr, nt=NT, nr=NR, ladder=lad3)
+            c = lambda p: Pair(p.re.contiguous(), p.im.contiguous())
+            return [ap, bt, u, c(y0), c(z0), c(v0),
+                    torch.full((lanes, 1), mu0, device="cuda"), lad]
+
+        loop = dict(nt=NT, nr=NR, rho=1.03, tol_rel=0.0, tol_abs=0.0)
+        cold = prepared(x0, True, 1e-3)
+        if m == M_TRAIN:
+            cold_divergence(cold, loop)
+        xw = fused_infer_admm(*cold, scale_by_row=True, maxiter=K3_WARM,
+                              **loop)[0]
+        for sbr in (True, False):
+            x = xw if sbr else pair_solver._orthonormalize_cols_t(xw)
+            args = prepared(x, sbr, K3_MU0)
+            kw = dict(scale_by_row=sbr, maxiter=K3_TRIPS, **loop)
+            got = fused_infer_admm(*args, **kw)
+            want = infer_admm_plain(*args, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[3], want[3])
+                    and torch.equal(got[2], want[2])):
+                raise RuntimeError(f"K3 trips {got[3].tolist()} / converged "
+                                   f"{got[2].tolist()} vs plain "
+                                   f"{want[3].tolist()} / {want[2].tolist()}")
+            if int(got[3].min()) != K3_TRIPS:
+                raise RuntimeError(f"K3 ran {got[3].tolist()} trips, not "
+                                   f"{K3_TRIPS}")
+            rel = rel_err(got, want)
+            err = max_err([*got[0], *got[1]], [*want[0], *want[1]])
+            if not rel <= K3_RTOL:
+                raise RuntimeError(f"K3 disagrees with its plain version: "
+                                   f"relative error {rel:.3e} > {K3_RTOL}")
+            ms = cuda_ms(lambda: fused_infer_admm(*args, **kw), reps=5)
+            plain = cuda_ms(lambda: infer_admm_plain(*args, **kw), reps=2)
+            flops = k3_flops(got[3], R, m, N)
+            bnd = bound(nbytes(*args[:7], args[7], *got[:2]) + 8 * lanes,
+                        flops)
+            print(f"[2 K3 fused_infer_admm] lanes {lanes} r {R} 16x16 m {m} "
+                  f"scale_by_row {sbr} {K3_TRIPS} trips (warm state, mu0 "
+                  f"{K3_MU0}): max rel err {rel:.3e} (tol {K3_RTOL}), max "
+                  f"abs err {err:.3e} | kernel {ms:.4f} ms | plain "
+                  f"{plain:.4f} ms | bound {bnd['bound_ms']:.4f} ms "
+                  f"({bnd['bound_by']})", flush=True)
+            out[(m, sbr)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                 **bnd, library_ms=None)
+    return out[(M_TRAIN, True)]
+
+
+def build_solve_problem(seed=1, batch=SOLVE_BATCH, m=M):
+    """bench.py's solve workload, rebuilt with numpy: ``batch`` two-path
     16x16 channels through one shared 2-bit random codebook."""
     rng = np.random.default_rng(seed)
-    bits = rng.integers(0, 4, (M, N))
+    bits = rng.integers(0, 4, (m, N))
     a = np.exp(1j * bits * (np.pi / 2)) / np.sqrt(N)
 
     def steer(nn, ang):
         return np.exp(1j * np.pi * np.arange(nn) * np.sin(ang)) / np.sqrt(nn)
 
     xs, bs = [], []
-    for _ in range(SOLVE_BATCH):
+    for _ in range(batch):
         angs = rng.uniform(-1.2, 1.2, 4)
         h = sum((rng.normal() + 1j * rng.normal())
                 * np.outer(steer(NR, angs[2 * i]),
@@ -241,10 +401,148 @@ def phase3_slice():
         raise RuntimeError(f"median NMSE {med:.2f} dB above -60 dB")
     if qmin < 0.98:
         raise RuntimeError(f"min quality {qmin:.4f} below 0.98")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in ("fused_prox_dual_t", "fused_zprox_t"):
+        if launches[name] <= 0:
             raise RuntimeError(f"{name} was never launched on the main path")
     return launches
+
+
+def nmse_db(x, x_true):
+    """Projection-invariant NMSE in dB of a (n,) pair against x_true."""
+    xe = (x.re.double() + 1j * x.im.double()).cpu()
+    err = nmse_h_projection(xe, torch.as_tensor(x_true))
+    return float(10 * torch.log10(torch.clamp(err, min=1e-30)))
+
+
+def profile_single(solve):
+    """One solve under torch.profiler: device time by kernel against the
+    solve's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve(SINGLE_REPS + 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0) > 0]
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    if total <= 0:
+        print("[4 profile] device time not measured (the profiler saw no "
+              "CUDA kernels)", flush=True)
+        return
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    parts = " | ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} "
+                       f"ms x{e.count}" for e in top)
+    print(f"[4 profile] two-path solve under the profiler: wall "
+          f"{wall_ms:.2f} ms, device busy {total:.2f} ms "
+          f"({100 * total / wall_ms:.1f}%) | {parts}", flush=True)
+
+
+def single_workload():
+    """bench.py's single-latency workload (bench.py:288-298), rebuilt with
+    numpy: seed 3, one 2-bit 16x16 codebook with m = 1024 and a random
+    complex x; beside it a two-path channel through the same codebook.
+    Returns ``(a, {name: x})``."""
+    rng = np.random.default_rng(3)
+    bits = rng.integers(0, 4, (M, N))
+    a = np.exp(1j * bits * (np.pi / 2)) / np.sqrt(N)
+    x_rand = (rng.standard_normal(N) + 1j * rng.standard_normal(N)) / np.sqrt(2)
+    x_two = build_solve_problem(seed=3, batch=1)[2][0]
+    return a, {"random x": x_rand, "two-path x": x_two}
+
+
+def phase4_single():
+    """The single-latency workload at the cold AdmmConfig(maxiter=500):
+    ten timed solves of bench.py's random complex x, then of a two-path
+    channel through the same codebook, then one anchored refine."""
+    a, workloads = single_workload()
+    ap = interop.pair_from_numpy(a, None)
+    cfg = AdmmConfig(maxiter=500)
+    results = {}
+    k3_launches = 0
+    for name, x_true in workloads.items():
+        bt = torch.as_tensor(np.abs(a @ x_true), dtype=torch.float32,
+                             device="cuda")
+
+        def solve(i, bt=bt):
+            return solve_lowrank_multi_pair(torch.Generator().manual_seed(i),
+                                            ap, bt, NT, NR, cfg)
+
+        solve(0)                                        # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        ms, nmse, qual, iters = [], [], [], []
+        for i in range(1, SINGLE_REPS + 1):
+            t0 = time.perf_counter()
+            res = solve(i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if res.x.re.device.type != "cuda" or tuple(res.x.re.shape) != (N,):
+                raise RuntimeError(f"result {tuple(res.x.re.shape)} on "
+                                   f"{res.x.re.device}")
+            if not bool(torch.isfinite(res.x.re).all()
+                        & torch.isfinite(res.x.im).all()):
+                raise RuntimeError("non-finite recovery")
+            nmse.append(nmse_db(res.x, x_true))
+            qual.append(float(res.quality))
+            iters.append(int(res.iters))
+        counts = launch_counts()
+        k3_launches += counts["fused_infer_admm"]
+        print(f"[4 single] solve_lowrank_multi_pair 16x16 m {M} r {R} "
+              f"{name}: median {np.median(ms):.2f} ms (range {min(ms):.2f}-"
+              f"{max(ms):.2f}) over {SINGLE_REPS} solves | iters median "
+              f"{int(np.median(iters))} (range {min(iters)}-{max(iters)}) | "
+              f"NMSE median {np.median(nmse):.2f} dB (range "
+              f"{min(nmse):.2f} to {max(nmse):.2f}) | quality min "
+              f"{min(qual):.6f} median {np.median(qual):.6f} | K3 launches "
+              f"{counts['fused_infer_admm']} ({counts})", flush=True)
+        results[name] = dict(nmse=float(np.median(nmse)), qmin=min(qual),
+                             res=res, bt=bt, x_true=x_true, solve=solve)
+    profile_single(results["two-path x"]["solve"])
+
+    # bench.py's random x is full-rank, which the spectral-profile ladder
+    # does not model: the JAX package's own solver stops near -14 dB at
+    # quality 0.8 on it (tests/jax_single_reference.py).  Hold the port to
+    # that class there, and to the -60 dB / 0.98 bar on the two-path
+    # channel the solver is built for.
+    rand, two = results["random x"], results["two-path x"]
+    if rand["nmse"] > -10.0 or rand["qmin"] < 0.7:
+        raise RuntimeError(f"random x: median NMSE {rand['nmse']:.2f} dB, "
+                           f"min quality {rand['qmin']:.4f} (need <= -10 dB, "
+                           ">= 0.7)")
+    if two["nmse"] > -60.0:
+        raise RuntimeError(f"two-path x: median NMSE {two['nmse']:.2f} dB "
+                           "above -60 dB")
+    if two["qmin"] < 0.98:
+        raise RuntimeError(f"two-path x: min quality {two['qmin']:.4f} "
+                           "below 0.98")
+    if k3_launches <= 0:
+        raise RuntimeError("fused_infer_admm was never launched on the "
+                           "single-recovery path")
+
+    # the anchored refine, seeded by the two-path result: the per-op loop
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ref = refine_lowrank_pair(ap, two["bt"], two["res"].x, NT, NR, cfg,
+                              anchor_weight=0.5)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    ref_db = nmse_db(ref.x, two["x_true"])
+    print(f"[4 refine] refine_lowrank_pair anchor_weight 0.5 from the "
+          f"two-path result: {ref_ms:.2f} ms | iters {int(ref.iters)} | "
+          f"NMSE {ref_db:.2f} dB | quality {float(ref.quality):.6f} | "
+          f"launches {counts}", flush=True)
+    for name in ("fused_prox_dual_t", "fused_zprox_t"):
+        if counts[name] <= 0:
+            raise RuntimeError(f"{name} was never launched by the anchored "
+                               "refine")
+    if ref_db > -60.0 or float(ref.quality) < 0.98:
+        raise RuntimeError(f"anchored refine: NMSE {ref_db:.2f} dB, quality "
+                           f"{float(ref.quality):.4f}")
+    return k3_launches
 
 
 def main():
@@ -252,10 +550,13 @@ def main():
     phase1_build()
     summary = phase2_kernels()
     launches = phase3_slice()
+    launches["fused_infer_admm"] = phase4_single()
     sources = {"fused_prox_dual_t": ("twoace_tpu_torch/csrc/prox_dual.cu",
                                      "twoace_tpu/ops/pallas/kernels.py:121"),
                "fused_zprox_t": ("twoace_tpu_torch/csrc/zprox.cu",
-                                 "twoace_tpu/ops/pallas/kernels.py:339")}
+                                 "twoace_tpu/ops/pallas/kernels.py:339"),
+               "fused_infer_admm": ("twoace_tpu_torch/csrc/infer_admm.cu",
+                                    "twoace_tpu/ops/pallas/solver_kernel.py:431")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **summary[name])
                for name, (src, rep) in sources.items()]

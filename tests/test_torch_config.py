@@ -52,16 +52,31 @@ def test_admm_config_from_jax_dict_round_trip():
 def test_pair_and_ladder_from_numpy_round_trip():
     rng = np.random.default_rng(0)
     re, im = torch_parity.rand_pair_np(rng, 3, 5)
-    p = interop.pair_from_numpy(re, im)
+    p = interop.pair_from_numpy(re, im, device="cpu")
     assert p.re.dtype == torch.float32 and p.shape == (3, 5)
     np.testing.assert_array_equal(p.re.numpy(), re)
     np.testing.assert_array_equal(p.im.numpy(), im)
-    pc = interop.pair_from_numpy(re + 1j * im, None)
+    pc = interop.pair_from_numpy(re + 1j * im, None, device="cpu")
     np.testing.assert_array_equal(pc.im.numpy(), im)
-    lad = interop.ladder_from_numpy([3, 4, 8, 16], [0.9, 0.95, 0.995, 0.0])
+    lad = interop.ladder_from_numpy([3, 4, 8, 16], [0.9, 0.95, 0.995, 0.0],
+                                    device="cpu")
     assert lad.ranks.dtype == torch.float32
     np.testing.assert_array_equal(lad.fracs.numpy(),
                                   np.float32([0.9, 0.95, 0.995, 0.0]))
+
+
+def test_converters_default_to_the_card():
+    """Without a device argument the converters build CUDA tensors, and
+    raise where there is no card instead of quietly staying on the CPU."""
+    re = np.zeros((2, 3), np.float32)
+    if torch.cuda.is_available():
+        assert interop.pair_from_numpy(re, re).re.device.type == "cuda"
+        assert interop.ladder_from_numpy([1.0], [0.9]).ranks.is_cuda
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interop.pair_from_numpy(re, re)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interop.ladder_from_numpy([1.0], [0.9])
 
 
 def test_port_imports_no_jax():

@@ -1,0 +1,221 @@
+"""K3, the loop kernel (``twoace_tpu_torch.ops.kernels.infer_admm``).
+
+On the CPU its wrapper runs the plain version, which is held against the
+Pallas megakernel it replaces (``fused_infer_admm`` in interpret mode, as
+``tests/test_pallas.py`` runs it) lane by lane, and against JAX's XLA
+``infer_admm_pair``.  The CUDA kernel is held against the plain version on
+the card by the ``gpu``-marked tests (and by chip_smoke.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import (codebook, jpair, nmse_db, np_pair, require_cuda,
+                          steer, tpair)
+from twoace_tpu.ops import pair_solver as jps
+from twoace_tpu.ops.pallas.solver_kernel import fused_infer_admm as pallas_k3
+from twoace_tpu.ops.prox import profile_ladder
+from twoace_tpu_torch.ops import kernels
+from twoace_tpu_torch.ops import pair_solver as tps
+from twoace_tpu_torch.ops.cplx import LadderArrays, Pair
+from twoace_tpu_torch.ops.kernels import infer_admm as k3
+from twoace_tpu_torch.ops.prox import profile_ladder_arrays
+
+NT = NR = 4
+N = NT * NR
+M = 2 * N
+R = 6
+LOOP = dict(rho=1.03, tol_rel=0.1, tol_abs=1e-8)   # stops lanes early
+
+
+def _problem(seed=0, lanes=2):
+    """One codebook, ``lanes`` channels, and the prepared state of each
+    lane (the port's own initialization, handed to both packages).  Lane
+    0 carries the train-split ladder, lane 1 the rank-1 ladder; both are
+    padded with f = 0 levels."""
+    rng = np.random.default_rng(seed)
+    a = codebook(rng, M, N)
+    xs = [np.outer(steer(NR, 0.3 + 0.4 * i), steer(NT, -0.2).conj()).T
+          .reshape(-1) + 0.4 * np.outer(steer(NR, -0.7), steer(NT, 0.5 * i)
+                                        .conj()).T.reshape(-1)
+          for i in range(lanes)]
+    b = np.abs(np.stack(xs) @ a.T).astype(np.float32)            # (P, m)
+    x0 = (rng.normal(size=(lanes, R, N))
+          + 1j * rng.normal(size=(lanes, R, N))).astype(np.complex64)
+    static = [profile_ladder(NT, NR, M, N, i % 2 == 1) for i in range(lanes)]
+    lads = [profile_ladder_arrays(NT, NR, M, N, i % 2 == 1)
+            for i in range(lanes)]
+    lad = LadderArrays(torch.stack([l.ranks for l in lads]),
+                       torch.stack([l.fracs for l in lads]))
+    assert float(lad.fracs.min()) == 0.0                       # padded
+    at, bt = tpair(a[None]), torch.tensor(b[None])
+    u = tps.precompute_u_pair(at)
+    return a, b, x0, static, at, bt, u, lad
+
+
+def _prepared(at, bt, x0, lad, scale_by_row):
+    """The port's initialization of every lane: (y0, z0, v0)."""
+    return tps.admm_init_pair(at, bt, tpair(x0[None]),
+                              scale_by_row=scale_by_row, nt=NT, nr=NR,
+                              ladder=lad)
+
+
+@pytest.fixture(scope="module", params=[True, False],
+                ids=["scale_by_row", "per_column"])
+def k3_vs_pallas(request):
+    sbr = request.param
+    a, b, x0, static, at, bt, u, lad = _problem()
+    y0, z0, v0 = _prepared(at, bt, x0, LadderArrays(lad.ranks[None],
+                                                    lad.fracs[None]), sbr)
+    mu0 = torch.full((1, 2), 1e-3)
+    got = kernels.fused_infer_admm(at, bt, u, y0, z0, v0, mu0, lad, nt=NT,
+                                   nr=NR, scale_by_row=sbr, maxiter=30, **LOOP)
+    uj = jpair(np_pair(u)[0][0], np_pair(u)[1][0])
+    want = []
+    for i in range(2):
+        def lane(p):
+            return jpair(np_pair(p)[0][0, i], np_pair(p)[1][0, i])
+        want.append(pallas_k3(
+            jpair(a), jnp.asarray(b[i]), uj, lane(y0), lane(z0), lane(v0),
+            1e-3, nt=NT, nr=NR, ladder=static[i], scale_by_row=sbr,
+            maxiter=30, interpret=True, **LOOP))
+    return sbr, got, want
+
+
+def test_plain_matches_pallas_interpret(k3_vs_pallas):
+    """K3's plain version against the Pallas megakernel lane by lane, with
+    the padded per-lane ladders: the same trip count and converged bit,
+    and opt_x / opt_y within atol 2e-4 of their scale (float32 rounding in
+    another order over up to 30 trips)."""
+    sbr, (ox, oy, conv, it), want = k3_vs_pallas
+    its = []
+    for i, (wx, wy, wconv, wit) in enumerate(want):
+        assert int(it[0, i]) == int(wit)
+        assert bool(conv[0, i]) == bool(wconv)
+        its.append(int(wit))
+        for got_p, want_p in ((ox, wx), (oy, wy)):
+            g = np_pair(got_p)
+            w = np_pair(want_p)
+            for gg, ww in zip(g, w):
+                ww = np.asarray(ww).reshape(gg[0, i].shape)
+                np.testing.assert_allclose(gg[0, i], ww, rtol=0,
+                                           atol=2e-4 * np.abs(ww).max())
+    # the tolerance makes at least one lane stop before the cap
+    assert min(its) < 30
+
+
+@pytest.mark.parametrize("scale_by_row", [True, False])
+def test_plain_matches_xla_infer_admm(scale_by_row):
+    """The K3 route of the port's infer_admm_pair (on the CPU, the plain
+    version) against JAX's XLA loop from the same x0 and U: the same trip
+    count and iterate.  The per-column pass starts here from a random x0,
+    far from its fixed point, where rounding in another order moves the
+    iterate most (-54 dB between the two after 60 trips), so it is held
+    to -50 dB; the first pass to 1e-4 of the scale of sum_k x_k x_k^H."""
+    a, b, x0, static, at, bt, u, lad = _problem(seed=1)
+    kw = dict(nt=NT, nr=NR, mu0=1e-3, rho=1.03, tol_rel=1e-4, tol_abs=1e-8,
+              maxiter=60)
+    got = tps.infer_admm_pair(at, bt, tpair(x0[None]),
+                              scale_by_row=scale_by_row,
+                              ladder=LadderArrays(lad.ranks[None],
+                                                  lad.fracs[None]),
+                              u_mat=u, **kw)
+    uj = jpair(np_pair(u)[0][0], np_pair(u)[1][0])
+    for i in range(2):
+        xj, _, _, itj = jps.infer_admm_pair(
+            jpair(a), jnp.asarray(b[i]), jpair(x0[i]),
+            scale_by_row=scale_by_row, ladder=static[i], u_mat=uj,
+            use_pallas=False, **kw)
+        assert int(got[3][0, i]) == int(itj)
+        xt = np_pair(got[0])
+        xt = (xt[0][0, i] + 1j * xt[1][0, i]).reshape(-1, N)
+        xw = np_pair(xj)
+        xw = (xw[0] + 1j * xw[1]).reshape(-1, N)
+        if scale_by_row:
+            pt, pj = xt.T @ xt.conj(), xw.T @ xw.conj()
+            np.testing.assert_allclose(pt, pj, atol=1e-4 * np.abs(pj).max())
+        else:
+            assert nmse_db(xt[0], xw[0]) < -50
+
+
+def test_cpu_calls_count_no_launches():
+    kernels.reset_launch_counts()
+    a, b, x0, static, at, bt, u, lad = _problem()
+    y0, z0, v0 = _prepared(at, bt, x0, LadderArrays(lad.ranks[None],
+                                                    lad.fracs[None]), True)
+    kernels.fused_infer_admm(at, bt, u, y0, z0, v0, torch.full((1, 2), 1e-3),
+                             lad, nt=NT, nr=NR, scale_by_row=True,
+                             maxiter=3, **LOOP)
+    assert kernels.launch_counts()["fused_infer_admm"] == 0
+
+
+def test_other_devices_raise_instead_of_falling_back():
+    meta = lambda *s: torch.empty(s, device="meta")
+    p = lambda *s: Pair(meta(*s), meta(*s))
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.fused_infer_admm(
+            p(1, M, N), meta(1, 2, M), p(1, N, N), p(1, 2, R, M),
+            p(1, 2, R, N), p(1, 2, NR, NR), meta(1, 2),
+            LadderArrays(meta(2, 4), meta(2, 4)), nt=NT, nr=NR,
+            scale_by_row=True, maxiter=3, **LOOP)
+
+
+def test_wrapper_checks_reject_what_the_kernel_does_not_take():
+    a, b, x0, static, at, bt, u, lad = _problem()
+    y0, z0, v0 = _prepared(at, bt, x0, LadderArrays(lad.ranks[None],
+                                                    lad.fracs[None]), True)
+    mu0 = torch.full((1, 2), 1e-3)
+    good = (at, bt, u, y0, z0, v0, mu0, lad)
+    k3._check(*good, NT, NR)
+    with pytest.raises(ValueError, match="nt\\*nr"):
+        k3._check(*good, 2, NR)
+    with pytest.raises(ValueError, match="shape"):
+        k3._check(at, bt[..., :-1], *good[2:], NT, NR)
+    with pytest.raises(ValueError, match="shape"):
+        k3._check(*good[:7], LadderArrays(lad.ranks[:1], lad.fracs[:1]),
+                  NT, NR)
+    big = Pair(torch.zeros(1, 2, 40, M), torch.zeros(1, 2, 40, M))
+    with pytest.raises(ValueError, match="r <= 32"):
+        k3._check(at, bt, u, big, z0, v0, mu0, lad, NT, NR)
+    with pytest.raises(ValueError, match="float32"):
+        k3._check(at, bt.double(), *good[2:], NT, NR)
+    assert k3.workspace_floats(R, M, N, NR) == (
+        4 * R * M + 12 * R * N + k3.CLUSTER * (2 * NR * NR + 10 + R))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale_by_row", [True, False])
+def test_k3_kernel_matches_plain_on_card(scale_by_row):
+    """K3 against its plain version on the card, two groups of two lanes
+    (G = 2, P = 2), a tolerance that stops some lanes early."""
+    require_cuda()
+    a, b, x0, static, at, bt, u, lad = _problem(lanes=2)
+    a2, b2, x02, *_ = _problem(seed=3, lanes=2)
+    cat = lambda p, q: Pair(torch.cat([p.re, q.re]), torch.cat([p.im, q.im]))
+    at = cat(at, tpair(a2[None]))
+    bt = torch.cat([bt, torch.tensor(b2[None])])
+    u = tps.precompute_u_pair(at)
+    x0t = tpair(np.stack([x0, x02]))
+    lad4 = LadderArrays(torch.cat([lad.ranks, lad.ranks]),
+                        torch.cat([lad.fracs, lad.fracs]))
+    y0, z0, v0 = tps.admm_init_pair(
+        at, bt, x0t, scale_by_row=scale_by_row, nt=NT, nr=NR,
+        ladder=LadderArrays(lad4.ranks.view(2, 2, -1),
+                            lad4.fracs.view(2, 2, -1)))
+    cuda = lambda p: Pair(p.re.cuda().contiguous(), p.im.cuda().contiguous())
+    args = [cuda(at), bt.cuda(), cuda(u), cuda(y0), cuda(z0), cuda(v0),
+            torch.full((2, 2), 1e-3, device="cuda"),
+            LadderArrays(lad4.ranks.cuda(), lad4.fracs.cuda())]
+    kw = dict(nt=NT, nr=NR, scale_by_row=scale_by_row, maxiter=30, **LOOP)
+    before = kernels.fused_infer_admm.launches
+    ox, oy, conv, it = kernels.fused_infer_admm(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.fused_infer_admm.launches == before + 1
+    ox0, oy0, conv0, it0 = kernels.infer_admm_plain(*args, **kw)
+    assert torch.equal(it, it0) and torch.equal(conv, conv0)
+    for g, w in ((ox, ox0), (oy, oy0)):
+        for gg, ww in ((g.re, w.re), (g.im, w.im)):
+            torch.testing.assert_close(gg, ww, rtol=0,
+                                       atol=2e-4 * float(ww.abs().max()))

@@ -1,4 +1,5 @@
-"""The port's two kernels (``twoace_tpu_torch.ops.kernels``).
+"""The port's per-op kernels K1 and K2 (``twoace_tpu_torch.ops.kernels``),
+and the build of all of them; K3 has ``test_torch_infer_admm.py``.
 
 On the CPU each wrapper runs its plain PyTorch version, which is held
 against (a) the JAX Pallas kernel it replaces, in interpret mode as
@@ -151,7 +152,8 @@ def test_cpu_calls_count_no_launches():
         lad.ranks.expand(3, -1).contiguous(),
         lad.fracs.expand(3, -1).contiguous()))
     assert kernels.launch_counts() == {"fused_prox_dual_t": 0,
-                                       "fused_zprox_t": 0}
+                                       "fused_zprox_t": 0,
+                                       "fused_infer_admm": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -189,12 +191,22 @@ def test_wrapper_checks_reject_what_the_kernels_do_not_take():
                   LadderArrays(torch.ones(2, 4), torch.zeros(2, 4)))
 
 
-def test_build_is_keyed_by_the_sources():
+def test_build_is_keyed_by_the_sources(tmp_path, monkeypatch):
+    """nvcc gets the .cu files; the library's name hashes them and the
+    headers they include, so a changed header cannot load a stale build."""
     names = sorted(p.name for p in _build.sources())
-    assert names == ["prox_dual.cu", "zprox.cu"]
+    assert names == ["infer_admm.cu", "prox_dual.cu", "zprox.cu"]
+    assert "zprox_core.cuh" in [p.name for p in _build.hashed_files()]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libtwoace_kernels-")
+    for src in _build.hashed_files():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build.library_path() == path
+    with open(tmp_path / "zprox_core.cuh", "a") as f:
+        f.write("// changed\n")
+    assert _build.library_path() != path
 
 
 @pytest.mark.gpu

@@ -248,19 +248,23 @@ def test_pass_caps_at_or_below_warm_iters_raise():
 
 
 def test_active_row_contract_and_unported_paths_raise():
+    """The batch solver's one-active-count contract; the Jacobi eig_mode
+    (a TPU workaround) is the one mode left unported, and an unknown
+    prox_kind is refused, in both solvers."""
     nt, nr, a, x_true, _ = _workload_forced_retry()
     b = np.abs(x_true @ a.T).astype(np.float32)
     b[0, :3] = 0.0                        # instance 0 has 3 inactive rows
     with pytest.raises(ValueError, match="same active"):
         _port_solve(a, b, nt, nr, AdmmConfig(maxiter=20))
-    with pytest.raises(NotImplementedError):
-        _port_solve(a, b, nt, nr, AdmmConfig(maxiter=20),
-                    prox_kind="nuclear")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="perturb"):
+        _port_solve(a, b[1:], nt, nr, AdmmConfig(maxiter=20),
+                    eig_mode="jacobi")
+    with pytest.raises(NotImplementedError, match="perturb"):
         tps.solve_lowrank_multi_pair(None, tpair(a), torch.tensor(b[1]),
-                                     nt, nr)
-    with pytest.raises(NotImplementedError):
-        tps.refine_lowrank_pair(tpair(a), torch.tensor(b[1]), None, nt, nr)
+                                     nt, nr, eig_mode="jacobi")
+    with pytest.raises(ValueError, match="prox_kind"):
+        tps.solve_lowrank_multi_pair(None, tpair(a), torch.tensor(b[1]),
+                                     nt, nr, prox_kind="none")
 
 
 def test_solver_restores_the_tf32_flag():

@@ -71,7 +71,8 @@ def nmse_db(x_est, x_gt):
     return 10 * np.log10(max(err, 1e-30))
 
 
-def jax_first_pass(key, a, b_batch, nt, nr, cfg):
+def jax_first_pass(key, a, b_batch, nt, nr, cfg,
+                   prox_kind="spectral_profile"):
     """The JAX batch solver's first stage with its own key derivation
     (``solve_lowrank_multi_pair_batch``): returns numpy
     ``(splits, xs (B, R, r, n) pair, q (B, R))``."""
@@ -97,7 +98,33 @@ def jax_first_pass(key, a, b_batch, nt, nr, cfg):
     with jax.default_matmul_precision(cfg.matmul_precision):
         _, q, _, xs, *_ = jps._batch_first_pass(
             k_inits, jpair(a), jnp.asarray(b_batch, jnp.float32), trains,
-            tests, lad, nt=nt, nr=nr, cfg=cfg, prox_kind="spectral_profile",
+            tests, lad, nt=nt, nr=nr, cfg=cfg, prox_kind=prox_kind,
             eig_mode="perturb", m_eff=m_act)
     return ((np.asarray(trains), np.asarray(tests)), np_pair(xs),
             np.asarray(q))
+
+
+def jax_single_draws(key, a, b, cfg, n_restarts=None):
+    """The JAX single solver's draws with its own key derivation
+    (``_solve_lowrank_core``): per-restart splits and the spectral init of
+    the normalized problem.  Returns numpy ``(splits, xs (R, r, n) pair)``
+    with splits = (trains (R, k), tests (R, m - k))."""
+    from twoace_tpu.ops import pair_solver as jps
+
+    m, n = a.shape
+    n_restarts = cfg.n_restarts if n_restarts is None else n_restarts
+    r = min(cfg.rank, m, n)
+    with jax.default_matmul_precision(cfg.matmul_precision):
+        a_n, b_n, _, _ = jps._normalize_problem_pair(
+            jpair(a), jnp.asarray(b, jnp.float32), cfg.tol_abs)
+        keys_r = [jax.random.fold_in(key, i) for i in range(n_restarts)]
+        splits = [jps._split(jax.random.split(k)[0], m, cfg.cc_frac)
+                  for k in keys_r]
+        xs = [jps.spectral_initialize_pair(jps._take_rows(a_n, tr), b_n[tr],
+                                           r, key=jax.random.split(k)[1])
+              for k, (tr, _) in zip(keys_r, splits)]
+    trains = np.stack([np.asarray(t) for t, _ in splits])
+    tests = np.stack([np.asarray(t) for _, t in splits])
+    xs = (np.stack([np_pair(x)[0] for x in xs]),
+          np.stack([np_pair(x)[1] for x in xs]))
+    return (trains, tests), xs

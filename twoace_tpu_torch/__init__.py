@@ -2,13 +2,16 @@
 
 The package imports torch and numpy and never jax.  The JAX package
 ``twoace_tpu`` is the reference it is tested against.  Ported so far: the
-batched A2 solver ``solve_lowrank_multi_pair_batch`` with its two
+A2 solver of ``ops.pair_solver`` (``solve_lowrank_multi_pair_batch``,
+``solve_lowrank_multi_pair``, ``refine_lowrank_pair``) with its three
 hand-written CUDA kernels (``ops.kernels``).
 """
 
 from . import interop  # noqa: F401
 from .config import AdmmConfig  # noqa: F401
 from .ops.cplx import Pair  # noqa: F401
-from .ops.pair_solver import solve_lowrank_multi_pair_batch  # noqa: F401
+from .ops.pair_solver import (  # noqa: F401
+    refine_lowrank_pair, solve_lowrank_multi_pair,
+    solve_lowrank_multi_pair_batch)
 
 __version__ = "0.1.0"

@@ -1,7 +1,9 @@
 """Carry state from numpy (and the JAX package's configs) into the port.
 
 Imports no jax: the JAX side hands over numpy arrays and
-``dataclasses.asdict`` of its configs.
+``dataclasses.asdict`` of its configs.  The converters put tensors on the
+card by default, where the port's entry points run; a caller that wants
+the CPU (the tests) says ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -13,16 +15,26 @@ from .config import AdmmConfig, SpectralProfileConfig
 from .ops.cplx import LadderArrays, Pair
 
 
-def pair_from_numpy(re, im, device=None) -> Pair:
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card; pass "
+                           "device='cpu' to build CPU tensors")
+    return dev
+
+
+def pair_from_numpy(re, im, device="cuda") -> Pair:
     """A float32 Pair from two numpy arrays (or one complex array as
-    ``re`` with ``im=None``)."""
+    ``re`` with ``im=None``) on ``device``."""
+    device = _device(device)
     if im is None:
         re, im = np.real(re), np.imag(re)
     return Pair(torch.as_tensor(np.asarray(re, np.float32), device=device),
                 torch.as_tensor(np.asarray(im, np.float32), device=device))
 
 
-def ladder_from_numpy(ranks, fracs, device=None) -> LadderArrays:
+def ladder_from_numpy(ranks, fracs, device="cuda") -> LadderArrays:
+    device = _device(device)
     return LadderArrays(
         torch.as_tensor(np.asarray(ranks, np.float32), device=device),
         torch.as_tensor(np.asarray(fracs, np.float32), device=device))

@@ -1,0 +1,254 @@
+"""The InferADMM loop of every lane, after its initialization.
+
+One body serves two callers (ref: inferLowRankV4_multi.m:281-386):
+
+- the per-op route of :func:`.pair_solver.infer_admm_pair`, which hands
+  it the CUDA kernels K1 (magnitude prox + M-dual) and K2 (warm Z-prox),
+  or the nuclear prox;
+- the plain version of the loop kernel K3
+  (:func:`.kernels.infer_admm.infer_admm_plain`), which hands it K1's and
+  K2's plain versions.
+
+Lanes are laid out (G, P, ...): G groups share one codebook block and its
+U, P lanes ride each group, so each pair GEMM folds (P, r) into the rows
+of one batched ``torch.matmul`` per group.  Each lane carries a
+``converged`` mask; a finished lane's state is frozen with
+``torch.where`` and its trip count ``it`` stops, so ``it`` keeps JAX's
+meaning (the trips each lane ran).  Whether any lane is still active is
+read on the host once every ``CHECK_EVERY`` trips; the extra frozen trips
+change nothing.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from .cplx import Pair, add, conj, matmul, sub, transpose
+
+#: trips between host reads of the lanes' converged masks
+CHECK_EVERY = 8
+
+
+@contextlib.contextmanager
+def tf32(enabled: bool):
+    """Set ``torch.backends.cuda.matmul.allow_tf32`` for the block.
+
+    False is JAX's "float32" matmul precision; True is the port's
+    stand-in for the single-pass "default" of the ``warm_iters`` phase.
+    On the CPU the flag changes nothing, as JAX's precision does not.
+    """
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+# ---------------------------------------------------------------------------
+# small helpers on (G, P, r, k) pairs
+
+def fro2(p: Pair):
+    return torch.sum(p.re * p.re + p.im * p.im, dim=(-2, -1))
+
+
+def norm(p: Pair):
+    return torch.sqrt(fro2(p))
+
+
+def gemm(x: Pair, mat: Pair) -> Pair:
+    """(G, P, r, k) @ (G, k, l) -> (G, P, r, l), folding (P, r) into the
+    rows of one batched Karatsuba product per group."""
+    g, p, r, k = x.re.shape
+    out = matmul(Pair(x.re.reshape(g, p * r, k), x.im.reshape(g, p * r, k)),
+                 mat)
+    return Pair(out.re.view(g, p, r, -1), out.im.view(g, p, r, -1))
+
+
+def lanes(p: Pair) -> Pair:
+    """(G, P, ...) -> (G*P, ...) view."""
+    return Pair(p.re.flatten(0, 1), p.im.flatten(0, 1))
+
+
+def groups(p: Pair, g: int) -> Pair:
+    """(G*P, ...) -> (G, P, ...) view."""
+    return Pair(p.re.unflatten(0, (g, -1)), p.im.unflatten(0, (g, -1)))
+
+
+def where(mask, new, old):
+    """Per-lane select; ``mask`` is (G, P), values (G, P, ...)."""
+    if isinstance(new, Pair):
+        return Pair(where(mask, new.re, old.re), where(mask, new.im, old.im))
+    return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - 2)),
+                       new, old)
+
+
+class _State(NamedTuple):
+    y: Pair
+    z: Pair
+    m_dual: Pair
+    n_dual: Pair
+    aty: Pair
+    v_basis: Pair
+    mu: torch.Tensor
+    last_res: torch.Tensor
+    opt_obj: torch.Tensor
+    opt_x: Pair
+    opt_y: Pair
+    it: torch.Tensor
+    converged: torch.Tensor
+
+
+#: ``prox_dual(ax, b, m_dual, mu, per_entry) -> (y, m_new)`` on lanes
+ProxDual = Callable
+#: ``z_prox(z_in, v_basis, mu) -> (z_new, v_new)`` on lanes
+ZProx = Callable
+
+
+def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
+              mu0, *, scale_by_row: bool, prox_dual: ProxDual, z_prox: ZProx,
+              rho: float, tol_rel: float, tol_abs: float, maxiter: int,
+              warm_iters: int = 0, anchor: Optional[Pair] = None):
+    """The loop of every lane from its prepared state.
+
+    ``a``: (G, m, n); ``b``: (G, P, m); ``u_mat``: (G, n, n), the inverse
+    of A^H A + reg I; ``y``/``z``: (G, P, r, m)/(G, P, r, n), the state
+    after initialization; ``v_basis``: (G, P, ...) carried by ``z_prox``;
+    ``mu0``: (G, P).  ``anchor``: the proximal anchor's pull
+    ``anchor_weight * anchor``, broadcastable to (G, P, r, n), added to
+    the X-update's right-hand side (U must carry the matching ridge).
+
+    Each trip: X-update against conj(U), magnitude prox with the M-dual
+    update, Z-prox, N-dual update, best-so-far tracking, the three
+    residual tests and the mu update.  With ``warm_iters > 0`` the first
+    ``min(warm_iters, maxiter)`` trips run with TF32 GEMMs, then
+    ``converged`` and the best-so-far objective are reset for every lane
+    and the float32 tail continues from the carried state (ref :571-578).
+
+    Returns ``(opt_x, opt_y, converged, it)``: opt_x (G, P, r, n) with
+    ``scale_by_row``, else the best column (G, P, 1, n); ``it`` (G, P).
+    """
+    g_, p_, r, m = y.re.shape
+    n = z.re.shape[-1]
+    n_lanes = g_ * p_
+    a_t = transpose(a)                                          # (G, n, m)
+    a_conj = conj(a)                                            # (G, m, n)
+    u_conj = conj(u_mat)                                        # U^T
+    b_lanes = b.reshape(n_lanes, m)
+    dev, f32 = y.re.device, torch.float32
+
+    def a_mul(x):
+        return gemm(x, a_t)
+
+    def ah_mul(yy):
+        return gemm(yy, a_conj)
+
+    def zeros(*shape):
+        return Pair(torch.zeros(shape, dtype=f32, device=dev),
+                    torch.zeros(shape, dtype=f32, device=dev))
+
+    def full(val, dtype=f32):
+        return torch.full((g_, p_), val, dtype=dtype, device=dev)
+
+    k_opt = r if scale_by_row else 1
+    state = _State(
+        y=y, z=z, m_dual=zeros(g_, p_, r, m), n_dual=zeros(g_, p_, r, n),
+        aty=ah_mul(y), v_basis=v_basis, mu=mu0,
+        last_res=full(math.inf), opt_obj=full(math.inf),
+        opt_x=zeros(g_, p_, k_opt, n), opt_y=zeros(g_, p_, k_opt, m),
+        it=full(0, torch.int32), converged=full(False, torch.bool))
+
+    def body(c: _State) -> _State:
+        mu = c.mu
+        mu4 = mu[..., None, None]
+        inv4 = 1.0 / mu4
+        # X-update (ref :401-409); the anchor's pull joins the rhs
+        t = Pair(c.y.re - c.m_dual.re * inv4, c.y.im - c.m_dual.im * inv4)
+        rhs = add(ah_mul(t), Pair(c.z.re - c.n_dual.re * inv4,
+                                  c.z.im - c.n_dual.im * inv4))
+        if anchor is not None:
+            rhs = add(rhs, anchor)
+        x = gemm(rhs, u_conj)
+        ax = a_mul(x)
+        # Y-update fused with the M-dual update (ref :511-533, :336-337)
+        yn, m_dual = prox_dual(lanes(ax), b_lanes, lanes(c.m_dual),
+                               mu.reshape(n_lanes), not scale_by_row)
+        yn, m_dual = groups(yn, g_), groups(m_dual, g_)
+        aty = ah_mul(yn)
+        # Z-update (ref :423-485)
+        z_in = Pair(x.re + c.n_dual.re * inv4, x.im + c.n_dual.im * inv4)
+        zn, v_new = z_prox(lanes(z_in), lanes(c.v_basis), mu.reshape(n_lanes))
+        zn, v_new = groups(zn, g_), groups(v_new, g_)
+        # N-dual update (ref :336-341)
+        j_m = sub(ax, yn)
+        j_n = sub(x, zn)
+        n_dual = Pair(c.n_dual.re + mu4 * j_n.re, c.n_dual.im + mu4 * j_n.im)
+
+        # best-so-far (ref :343-361)
+        if scale_by_row:
+            amp = torch.sqrt(torch.clamp(
+                torch.sum(ax.re ** 2 + ax.im ** 2, dim=-2), min=0.0))
+            obj = torch.linalg.vector_norm(amp - b, dim=-1)     # (G, P)
+            x_best, y_best = x, yn
+        else:
+            amp = torch.sqrt(torch.clamp(ax.re ** 2 + ax.im ** 2, min=0.0))
+            objs = torch.linalg.vector_norm(amp - b[..., None, :], dim=-1)
+            j = torch.argmin(objs, dim=-1, keepdim=True)      # first on ties
+            obj = torch.gather(objs, -1, j)[..., 0]
+
+            def pick(p: Pair) -> Pair:
+                idx = j[..., None].expand(g_, p_, 1, p.re.shape[-1])
+                return Pair(torch.gather(p.re, 2, idx),
+                            torch.gather(p.im, 2, idx))
+
+            x_best, y_best = pick(x), pick(yn)
+        better = obj < c.opt_obj
+        opt_x = where(better, x_best, c.opt_x)
+        opt_y = where(better, y_best, c.opt_y)
+        opt_obj = torch.minimum(obj, c.opt_obj)
+
+        # convergence tests (ref :363-375)
+        nax, ny, naty = norm(ax), norm(yn), norm(aty)
+        nx, nz = norm(x), norm(zn)
+        res_prim = torch.sqrt(fro2(j_m) + fro2(j_n))
+        dz2 = fro2(sub(zn, c.z))
+        res_dual = mu * torch.sqrt(fro2(sub(aty, c.aty)) + dz2)
+        res_comb = torch.sqrt(res_prim ** 2 + fro2(sub(yn, c.y)) + dz2)
+        big = torch.maximum(nax, ny) ** 2 + torch.maximum(nx, nz) ** 2
+        t_prim = tol_abs * math.sqrt((m + n) * r) + tol_rel * torch.sqrt(big)
+        t_dual = (tol_abs * math.sqrt(n * r * 2)
+                  + tol_rel * torch.sqrt(naty ** 2 + nz ** 2))
+        t_comb = (tol_abs * math.sqrt((m + n) * r * 2)
+                  + tol_rel * torch.sqrt(big + ny ** 2 + nz ** 2))
+        converged = (((res_prim < t_prim) & (res_dual < t_dual))
+                     | (res_comb < t_comb))
+        mu = torch.where(res_comb > c.last_res * 0.9, mu * rho, mu)
+        return _State(y=yn, z=zn, m_dual=m_dual, n_dual=n_dual, aty=aty,
+                      v_basis=v_new, mu=mu, last_res=res_comb,
+                      opt_obj=opt_obj, opt_x=opt_x, opt_y=opt_y,
+                      it=c.it + 1, converged=converged)
+
+    def run(c: _State, bound: int) -> _State:
+        for trip in range(bound):
+            active = (c.it < bound) & ~c.converged
+            if trip % CHECK_EVERY == 0 and not bool(active.any()):
+                break
+            new = body(c)
+            c = _State(*(where(active, nv, ov) for nv, ov in zip(new, c)))
+        return c
+
+    if warm_iters > 0:
+        with tf32(True):
+            state = run(state, min(warm_iters, maxiter))
+        # coarse residuals must not certify convergence, and the coarse
+        # best-so-far objective must not block the float32 tail's better
+        # states: reset both at the phase switch (ref :571-578)
+        state = state._replace(converged=torch.zeros_like(state.converged),
+                               opt_obj=torch.full_like(state.opt_obj,
+                                                       math.inf))
+    state = run(state, maxiter)
+    return state.opt_x, state.opt_y, state.converged, state.it

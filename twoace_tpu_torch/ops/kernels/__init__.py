@@ -3,7 +3,9 @@ PyTorch version.  Port of ``twoace_tpu.ops.pallas.kernels``:
 
 - :func:`fused_prox_dual_t` (K1, ``csrc/prox_dual.cu``);
 - :func:`fused_zprox_t` (K2, ``csrc/zprox.cu``), which also takes the
-  place of the lane-packed ``fused_zprox_batch``.
+  place of the lane-packed ``fused_zprox_batch``;
+- :func:`fused_infer_admm` (K3, ``csrc/infer_admm.cu``), the whole
+  InferADMM loop, port of ``twoace_tpu.ops.pallas.solver_kernel``.
 
 Each wrapper counts its launches in a plain integer attribute
 ``.launches``; a CPU tensor takes the plain version and counts nothing.
@@ -11,8 +13,9 @@ Each wrapper counts its launches in a plain integer attribute
 
 from .prox_dual import fused_prox_dual_t, prox_dual_t_plain  # noqa: F401
 from .zprox import fused_zprox_t, zprox_t_plain  # noqa: F401
+from .infer_admm import fused_infer_admm, infer_admm_plain  # noqa: F401
 
-KERNELS = (fused_prox_dual_t, fused_zprox_t)
+KERNELS = (fused_prox_dual_t, fused_zprox_t, fused_infer_admm)
 
 
 def reset_launch_counts() -> None:

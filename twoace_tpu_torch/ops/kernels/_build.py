@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels, and check what their wrappers
 pass them.
 
-``twoace_tpu_torch/csrc/*.cu`` are compiled at first use with ``nvcc``
-into one shared library with a plain C interface, written to
-``twoace_tpu_torch/_build/`` (git-ignored) under a name keyed by a hash of
-the sources and the flags, and loaded with ``ctypes``.  Nothing is built
-when a module is imported: the CPU tests import every module.
+``twoace_tpu_torch/csrc/*.cu`` are compiled at first use, one ``nvcc``
+per source, all started together, and linked into one shared library
+with a plain C interface.  It is written to ``twoace_tpu_torch/_build/``
+(git-ignored) under a name keyed by a hash of the sources, the headers
+they include (``csrc/*.cuh``) and the flags, and loaded with ``ctypes``.
+Nothing is built when a module is imported: the CPU tests import every
+module.
 """
 
 from __future__ import annotations
@@ -28,23 +30,31 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of the exported functions; every pointer and the stream are
 # c_void_p so ctypes does not cut them to 32 bits
 SIGNATURES = {
     "twoace_prox_dual_t": [_P] * 10 + [_I, _I, _I, _I, _P],
     "twoace_zprox_t": [_P] * 10 + [_I, _I, _I, _I, _P],
+    "twoace_infer_admm": [_P] * 21 + [_I] * 11 + [_F] * 3 + [_P],
 }
 
 _lib = None
 
 
 def sources():
+    """The translation units given to nvcc."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def hashed_files():
+    """Everything the library is built from: the sources and headers."""
+    return sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
 
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in hashed_files():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libtwoace_kernels-{h.hexdigest()[:16]}.so"
@@ -65,23 +75,33 @@ def nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the sources if no library for their hash exists yet."""
+    """Compile the sources if no library for their hash exists yet: one
+    nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        jobs = []
+        for src in sources():
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            cmd = [nvcc(), *compile_flags, "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        for cmd, _, proc in jobs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
+                                   + stdout + stderr)
+        tmp = os.path.join(tmpdir, "lib.so")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *(obj for _, obj, _ in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
                                + proc.stdout + proc.stderr)
         os.replace(tmp, out)            # atomic: readers never see a partial
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
     return out
 
 

@@ -1,0 +1,138 @@
+"""K3: the whole InferADMM loop in one CUDA kernel, one thread-block
+cluster per lane (``csrc/infer_admm.cu``).
+
+Port of ``twoace_tpu.ops.pallas.solver_kernel.fused_infer_admm``, with a
+lane axis: ``a`` (G, m, n) and ``u`` (G, n, n) per group, ``b`` and the
+state (G, P, ...) per lane, and the ladder as per-lane runtime tensors.
+A CPU tensor takes the plain version :func:`infer_admm_plain`, which runs
+the shared loop body (:func:`..admm_loop.admm_loop`) with K1's and K2's
+plain versions; a CUDA tensor launches the kernel or raises.
+
+On CUDA the kernel computes every product in float32 on the CUDA cores
+(no tensor cores), so it is convergence-class whatever
+``AdmmConfig.kernel_precision`` says; the JAX kernel's single-pass
+"default" and 3-pass "split3" modes have no counterpart yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..admm_loop import admm_loop
+from ..cplx import LadderArrays, Pair
+from . import _build
+from .prox_dual import prox_dual_t_plain
+from .zprox import MAX_NR, zprox_t_plain
+
+#: CTAs of the thread-block cluster that runs one lane (csrc/infer_admm.cu)
+CLUSTER = 8
+#: the kernel keeps at most this many rows r of a lane's state per tile
+MAX_R = 32
+
+
+def infer_admm_plain(a: Pair, b, u: Pair, y0: Pair, z0: Pair, v0: Pair, mu0,
+                     ladder: LadderArrays, *, nt: int, nr: int,
+                     scale_by_row: bool, rho: float, tol_rel: float,
+                     tol_abs: float, maxiter: int):
+    """Plain PyTorch version of :func:`fused_infer_admm`: the same
+    function of the same prepared inputs, through K1's and K2's plain
+    versions."""
+
+    def z_prox(z, v, mu):
+        return zprox_t_plain(z, v, nt, nr, ladder)
+
+    return admm_loop(a, b, u, y0, z0, v0, mu0, scale_by_row=scale_by_row,
+                     prox_dual=prox_dual_t_plain, z_prox=z_prox, rho=rho,
+                     tol_rel=tol_rel, tol_abs=tol_abs, maxiter=maxiter)
+
+
+def workspace_floats(r: int, m: int, n: int, nr: int) -> int:
+    """Floats of one lane's workspace: Y and the M-dual (r, m); Z, the
+    N-dual, A^H Y, X, the rhs and X + N/mu (r, n), each a (re, im) pair;
+    then the cluster's partial sums.  Matches ``lane_workspace`` in the
+    kernel."""
+    partials = 2 * nr * nr + 10 + r
+    return 4 * r * m + 12 * r * n + CLUSTER * partials
+
+
+def _check(a: Pair, b, u: Pair, y0: Pair, z0: Pair, v0: Pair, mu0,
+           ladder: LadderArrays, nt: int, nr: int):
+    g_, p_, r, m = y0.re.shape
+    n = a.re.shape[-1]
+    if n != nt * nr:
+        raise ValueError(f"a has {n} columns, need nt*nr = {nt * nr}")
+    if not 1 <= nr <= MAX_NR:
+        raise ValueError(f"the kernel takes 1 <= nr <= {MAX_NR}, got {nr}")
+    if not 1 <= r <= MAX_R:
+        raise ValueError(f"the kernel takes 1 <= r <= {MAX_R}, got {r}")
+    levels = ladder.ranks.shape[-1]
+    lanes = g_ * p_
+    _build.check_inputs({"a.re": (a.re, (g_, m, n)), "a.im": (a.im, (g_, m, n)),
+                         "u.re": (u.re, (g_, n, n)), "u.im": (u.im, (g_, n, n)),
+                         "b": (b, (g_, p_, m)),
+                         "y0.re": (y0.re, (g_, p_, r, m)),
+                         "y0.im": (y0.im, (g_, p_, r, m)),
+                         "z0.re": (z0.re, (g_, p_, r, n)),
+                         "z0.im": (z0.im, (g_, p_, r, n)),
+                         "v0.re": (v0.re, (g_, p_, nr, nr)),
+                         "v0.im": (v0.im, (g_, p_, nr, nr)),
+                         "mu0": (mu0, (g_, p_)),
+                         "ladder.ranks": (ladder.ranks, (lanes, levels)),
+                         "ladder.fracs": (ladder.fracs, (lanes, levels))},
+                        a.re.device)
+
+
+def fused_infer_admm(a: Pair, b, u: Pair, y0: Pair, z0: Pair, v0: Pair, mu0,
+                     ladder: LadderArrays, *, nt: int, nr: int,
+                     scale_by_row: bool, rho: float, tol_rel: float,
+                     tol_abs: float, maxiter: int):
+    """Run the InferADMM loop of every lane from its prepared state.
+
+    ``a``: (G, m, n) codebook blocks; ``u``: (G, n, n) = inv(A^H A + I);
+    ``b``: (G, P, m); ``y0``/``z0``: (G, P, r, m)/(G, P, r, n) after the
+    initialization; ``v0``: (G, P, nr, nr) warm Z-prox basis in the
+    E-convention of ``cplx.panel_gram_basis_pair``; ``mu0``: (G, P);
+    ``ladder``: ranks/fracs (G*P, L), padded levels with f = 0.
+
+    Returns ``(opt_x, opt_y, converged, it)``: opt_x (G, P, r, n) and
+    opt_y (G, P, r, m) with ``scale_by_row``, else the best column
+    (G, P, 1, ·); ``converged`` bool and ``it`` int32, both (G, P).
+    """
+    kw = dict(nt=nt, nr=nr, scale_by_row=scale_by_row, rho=rho,
+              tol_rel=tol_rel, tol_abs=tol_abs, maxiter=maxiter)
+    if a.re.device.type == "cpu":
+        return infer_admm_plain(a, b, u, y0, z0, v0, mu0, ladder, **kw)
+    if a.re.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.re.device}")
+    _check(a, b, u, y0, z0, v0, mu0, ladder, nt, nr)
+    g_, p_, r, m = y0.re.shape
+    n = a.re.shape[-1]
+    lanes = g_ * p_
+    k_opt = r if scale_by_row else 1
+    dev = a.re.device
+    lib = _build.library()
+    ws_lane = workspace_floats(r, m, n, nr)
+    ws = torch.empty(lanes * ws_lane, dtype=torch.float32, device=dev)
+    ox = [torch.zeros(g_, p_, k_opt, n, device=dev) for _ in range(2)]
+    oy = [torch.zeros(g_, p_, k_opt, m, device=dev) for _ in range(2)]
+    it = torch.zeros(g_, p_, dtype=torch.int32, device=dev)
+    conv = torch.zeros(g_, p_, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.twoace_infer_admm(
+        a.re.data_ptr(), a.im.data_ptr(), u.re.data_ptr(), u.im.data_ptr(),
+        b.data_ptr(), y0.re.data_ptr(), y0.im.data_ptr(), z0.re.data_ptr(),
+        z0.im.data_ptr(), v0.re.data_ptr(), v0.im.data_ptr(),
+        mu0.data_ptr(), ladder.ranks.data_ptr(), ladder.fracs.data_ptr(),
+        ws.data_ptr(), ox[0].data_ptr(), ox[1].data_ptr(), oy[0].data_ptr(),
+        oy[1].data_ptr(), it.data_ptr(), conv.data_ptr(),
+        lanes, p_, r, m, n, nt, nr, ladder.ranks.shape[-1],
+        int(scale_by_row), maxiter, ws_lane, rho, tol_rel, tol_abs, stream)
+    if rc == -1:
+        raise RuntimeError(f"fused_infer_admm: a cluster of {CLUSTER} CTAs "
+                           f"cannot be placed on {dev}")
+    _build.check(rc, "fused_infer_admm")
+    fused_infer_admm.launches += 1
+    return Pair(*ox), Pair(*oy), conv.bool(), it
+
+
+fused_infer_admm.launches = 0

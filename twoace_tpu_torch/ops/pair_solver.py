@@ -1,32 +1,38 @@
-"""The batched 2ACE "A2" solver in pair (re, im) representation.
+"""The 2ACE "A2" solver in pair (re, im) representation.
 
-Port of the batch path of ``twoace_tpu.ops.pair_solver``
-(``solve_lowrank_multi_pair_batch`` and what it runs), the
-``inferLowRankV4_multi`` scaffold (ref:
-main/src/my_recovery_algorithms/ADMM_v2/inferLowRankV4_multi.m:5-109) for
-a batch of channels measured through one shared codebook.
+Port of ``twoace_tpu.ops.pair_solver``: the ``inferLowRankV4_multi``
+scaffold (ref: main/src/my_recovery_algorithms/ADMM_v2/
+inferLowRankV4_multi.m:5-109) for one recovery
+(:func:`solve_lowrank_multi_pair`), its warm-started refine
+(:func:`refine_lowrank_pair`), and a batch of channels measured through
+one shared codebook (:func:`solve_lowrank_multi_pair_batch`).
 
 Where JAX vmaps a ``lax.while_loop``, the port runs one loop over a lane
 axis.  A lane is one (instance, restart) pair.  State tensors are laid out
 (G, P, r, k): G groups share one codebook block (a restart's train split,
 a retry lane's own split, or the full codebook), and P lanes ride each
-group, so the three pair GEMMs of a trip fold (P, r) into the rows of one
-batched ``torch.matmul`` over groups.  Each lane carries a ``converged``
-mask; a finished lane's state is frozen with ``torch.where`` and its trip
-count ``it`` stops, so ``iters`` keeps JAX's meaning (the trips each lane
-ran).
-Whether any lane is still active is read on the host once every
-``CHECK_EVERY`` trips; the extra frozen trips change nothing.
+group.  ``iters`` keeps JAX's meaning: the trips each lane ran, summed
+over every inner solve whose result was used.
 
-The magnitude prox with its dual update and the warm Z-prox run through
-the hand-written kernels of :mod:`.kernels` on CUDA tensors.  The setup
-around the loop (Cholesky, eigh, QR, the quality gate, the retry gather and
-scatter) is plain torch.
+Routing of an inner solve on CUDA tensors (:func:`infer_admm_pair`):
+
+- on the single-recovery path, a spectral-profile solve that is not
+  anchored and has no warm (TF32) trips runs its whole loop in the CUDA
+  kernel K3 (:func:`.kernels.fused_infer_admm`), as JAX's megakernel
+  route does;
+- every other solve (anchored, ``warm_iters > 0``, nuclear, and every
+  solve of the batch solver) runs the per-op loop of :mod:`.admm_loop`
+  with torch GEMMs and the kernels K1 (magnitude prox + M-dual) and K2
+  (warm Z-prox), or the nuclear prox in plain torch.
+
+No solve on a CUDA tensor falls back to a plain version.  The setup around
+the loop (Cholesky, eigh, QR, the quality gate, the retry gather and
+scatter) is plain torch.  Only ``eig_mode="perturb"`` is ported: the Jacobi
+eigensolver existed because the TPU lacked ``eigh``.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import NamedTuple, Optional
 
@@ -34,85 +40,36 @@ import numpy as np
 import torch
 
 from ..config import AdmmConfig
-from .cplx import (LadderArrays, Pair, add, conj, from_complex,
-                   magnitude_prox_cols_elem, matmul, scale, sub,
-                   to_complex, transpose)
-from .kernels import fused_prox_dual_t, fused_zprox_t, zprox_t_plain
+from .admm_loop import admm_loop, gemm, groups, lanes, norm, where
+from .admm_loop import tf32 as _tf32
+from .cplx import (LadderArrays, Pair, from_complex, magnitude_prox_cols_elem,
+                   scale, to_complex, transpose)
+from .kernels import (fused_infer_admm, fused_prox_dual_t, fused_zprox_t,
+                      zprox_t_plain)
 from .prox import profile_ladder_arrays
 
 __all__ = [
     "PairAdmmResult", "precompute_u_pair", "spectral_initialize_pair",
     "project_cols_to_magnitude", "magnitude_prox_cols_elem",
-    "infer_admm_pair", "solve_lowrank_multi_pair_batch",
+    "admm_init_pair", "infer_admm_pair", "solve_lowrank_multi_pair_batch",
     "solve_lowrank_multi_pair", "refine_lowrank_pair",
 ]
 
-#: trips between host reads of the lanes' converged masks
-CHECK_EVERY = 8
+PROX_KINDS = ("spectral_profile", "nuclear")
 
 
 class PairAdmmResult(NamedTuple):
-    x: Pair                 #: (B, n) recovered vec(H)
-    quality: torch.Tensor   #: (B,) held-out quality 1 - ||(|A x|) - b|| / ||b||
-    converged: torch.Tensor  #: (B,) bool
-    #: (B,) inner-ADMM trips each instance's lanes ran, summed over every
-    #: solve whose result was used (both passes of every restart, the
-    #: retry, and the refine)
+    #: recovered vec(H): (n,) from the single-recovery entries, (B, n) from
+    #: the batch solver
+    x: Pair
+    #: held-out quality 1 - ||(|A x|) - b|| / ||b|| (the refine: the fit
+    #: over all the data); () or (B,)
+    quality: torch.Tensor
+    converged: torch.Tensor  #: bool, () or (B,)
+    #: inner-ADMM trips each instance's lanes ran, summed over every solve
+    #: whose result was used (both passes of every restart, the retry,
+    #: and the refine); () or (B,)
     iters: torch.Tensor
-
-
-@contextlib.contextmanager
-def _tf32(enabled: bool):
-    """Set ``torch.backends.cuda.matmul.allow_tf32`` for the block.
-
-    False is JAX's "float32" matmul precision; True is the port's
-    stand-in for the single-pass "default" of the ``warm_iters`` phase.
-    On the CPU the flag changes nothing, as JAX's precision does not.
-    """
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = enabled
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
-# ---------------------------------------------------------------------------
-# small helpers on (G, P, r, k) pairs
-
-def _fro2(p: Pair):
-    return torch.sum(p.re * p.re + p.im * p.im, dim=(-2, -1))
-
-
-def _norm(p: Pair):
-    return torch.sqrt(_fro2(p))
-
-
-def _gemm(x: Pair, mat: Pair) -> Pair:
-    """(G, P, r, k) @ (G, k, l) -> (G, P, r, l), folding (P, r) into the
-    rows of one batched Karatsuba product per group."""
-    g, p, r, k = x.re.shape
-    out = matmul(Pair(x.re.reshape(g, p * r, k), x.im.reshape(g, p * r, k)),
-                 mat)
-    return Pair(out.re.view(g, p, r, -1), out.im.view(g, p, r, -1))
-
-
-def _lanes(p: Pair) -> Pair:
-    """(G, P, ...) -> (G*P, ...) view."""
-    return Pair(p.re.flatten(0, 1), p.im.flatten(0, 1))
-
-
-def _groups(p: Pair, g: int) -> Pair:
-    """(G*P, ...) -> (G, P, ...) view."""
-    return Pair(p.re.unflatten(0, (g, -1)), p.im.unflatten(0, (g, -1)))
-
-
-def _where(mask, new, old):
-    """Per-lane select; ``mask`` is (G, P), values (G, P, ...)."""
-    if isinstance(new, Pair):
-        return Pair(_where(mask, new.re, old.re), _where(mask, new.im, old.im))
-    return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - 2)),
-                       new, old)
 
 
 # ---------------------------------------------------------------------------
@@ -191,10 +148,26 @@ def _orthonormalize_cols_t(x: Pair) -> Pair:
     return from_complex(v.flip(-1).transpose(-1, -2) @ xc)
 
 
+def _nuclear_prox_t(z: Pair, thresh) -> Pair:
+    """Nuclear prox of transposed z (..., r, n): soft-threshold the
+    singular values of Z = z^T by ``thresh`` (a scalar or (...,)), through
+    the r x r Gram Z^H Z and ``torch.linalg.eigh``.
+    ref: inferLowRank_Nuclear.m:411-439."""
+    zc = to_complex(z)
+    g = zc.conj() @ zc.transpose(-1, -2)                       # Z^H Z
+    w, v = torch.linalg.eigh(0.5 * (g + g.mH))
+    s = torch.sqrt(torch.clamp(w, min=0.0))
+    th = thresh[..., None] if torch.is_tensor(thresh) else thresh
+    ratio = torch.clamp(s - th, min=0.0) / torch.clamp(s, min=1e-30)
+    mat = (v * ratio[..., None, :].to(v.dtype)) @ v.mH         # V ratio V^H
+    # Z_new = Z (V ratio V^H)  =>  z_new = conj(V ratio V^H) z
+    return from_complex(mat.conj() @ zc)
+
+
 def _quality_pair(a_te: Pair, b_te, x: Pair):
     """1 - ||(|A_te x|) - b_te|| / ||b_te|| of single-column x (G, P, 1, n)
     against (G, m_te, n) blocks and b_te (G, P, m_te).  ref :68."""
-    ax = _gemm(x, transpose(a_te))
+    ax = gemm(x, transpose(a_te))
     amp = torch.sqrt(torch.clamp(ax.re ** 2 + ax.im ** 2, min=0.0))[..., 0, :]
     return 1.0 - (torch.linalg.vector_norm(amp - b_te, dim=-1)
                   / torch.clamp(torch.linalg.vector_norm(b_te, dim=-1),
@@ -204,191 +177,144 @@ def _quality_pair(a_te: Pair, b_te, x: Pair):
 # ---------------------------------------------------------------------------
 # the inner solve
 
-class _State(NamedTuple):
-    y: Pair
-    z: Pair
-    m_dual: Pair
-    n_dual: Pair
-    aty: Pair
-    v_basis: Pair
-    mu: torch.Tensor
-    last_res: torch.Tensor
-    opt_obj: torch.Tensor
-    opt_x: Pair
-    opt_y: Pair
-    it: torch.Tensor
-    converged: torch.Tensor
+def _lane_ladder(ladder: LadderArrays, g_: int, p_: int) -> LadderArrays:
+    """A ladder broadcastable to (G, P, L) as per-lane (G*P, L) tensors."""
+    levels = ladder.ranks.shape[-1]
+    return LadderArrays(
+        ladder.ranks.expand(g_, p_, levels).reshape(g_ * p_, levels)
+        .contiguous(),
+        ladder.fracs.expand(g_, p_, levels).reshape(g_ * p_, levels)
+        .contiguous())
+
+
+def _contiguous(p: Pair) -> Pair:
+    return Pair(p.re.contiguous(), p.im.contiguous())
+
+
+def admm_init_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool, nt: int,
+                   nr: int, ladder: Optional[LadderArrays],
+                   prox_kind: str = "spectral_profile"):
+    """Initialization of every lane's InferADMM solve (ref :300-321).
+
+    Scales x0 to the measurements, projects A x0 onto the magnitudes b,
+    and seeds the Z-prox: the spectral-profile prox from a cold ``eigh``
+    basis of the initial Gram, the nuclear prox at threshold 1.  Returns
+    ``(y, z, v_basis)``, the state the loop starts from; v_basis is
+    (G, P, nr, nr) in the E-convention (a (G, P, 1, 1) placeholder for the
+    nuclear prox).
+    """
+    g_, p_ = x0.re.shape[:2]
+    a_t = transpose(a)
+    ax = gemm(x0, a_t)
+    bn = torch.linalg.vector_norm(b, dim=-1)                    # (G, P)
+    if scale_by_row:
+        x = scale(x0, (bn / torch.clamp(norm(ax), min=1e-30))[..., None, None])
+    else:
+        col = torch.sqrt(torch.clamp(torch.sum(ax.re ** 2 + ax.im ** 2,
+                                               dim=-1), min=1e-30))
+        x = scale(x0, (bn[..., None] / col)[..., None])
+    y = project_cols_to_magnitude(gemm(x, a_t), b, scale_by_row)
+    if prox_kind == "nuclear":
+        z = _nuclear_prox_t(x, 1.0)
+        zero = torch.zeros(g_, p_, 1, 1, dtype=torch.float32,
+                           device=x.re.device)
+        return y, z, Pair(zero, zero)
+    z, v_basis = (groups(p, g_) for p in zprox_t_plain(
+        lanes(x), None, nt, nr, _lane_ladder(ladder, g_, p_)))
+    return y, z, v_basis
 
 
 def infer_admm_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool,
-                    nt: int, nr: int, ladder: LadderArrays, u_mat: Pair,
+                    nt: int, nr: int, ladder: Optional[LadderArrays] = None,
+                    u_mat: Optional[Pair] = None,
+                    prox_kind: str = "spectral_profile",
                     mu0: float = 1e-3, rho: float = 1.03,
                     tol_rel: float = 1e-4, tol_abs: float = 1e-8,
-                    maxiter: int = 500, warm_iters: int = 0):
+                    maxiter: int = 500, warm_iters: int = 0,
+                    anchor: Optional[Pair] = None,
+                    anchor_weight: float = 0.0, fused_loop: bool = True):
     """One InferADMM solve of every lane (ref: inferLowRankV4_multi.m:281-386).
 
     ``a``: (G, m, n) codebook blocks; ``b``: (G, P, m); ``x0``:
-    (G, P, r, n); ``u_mat``: (G, n, n) = inv(A^H A + I) per block;
-    ``ladder``: ranks/fracs broadcastable to (G, P, L).
+    (G, P, r, n); ``u_mat``: (G, n, n) = inv(A^H A + I) per block, or None
+    to compute it here; ``ladder``: ranks/fracs broadcastable to
+    (G, P, L), None for the nuclear prox.
 
-    X-update against U, magnitude prox (kernel K1), warm spectral-profile
-    Z-prox (kernel K2), dual updates, best-so-far tracking, the three
-    residual tests and mu adaptation.  With ``warm_iters > 0`` the first
-    ``min(warm_iters, maxiter)`` trips run with TF32 GEMMs, then
-    ``converged`` (which also marks a lane done) and the best-so-far
-    objective are reset for every lane and the float32 tail continues
-    from the carried state.
+    ``anchor`` (broadcastable to (G, P, r, n)) with ``anchor_weight > 0``
+    adds ``anchor_weight * ||x - anchor||^2`` to the X-subproblem (the
+    tracker's proximal anchor): the pull joins the X-update's right-hand
+    side and U takes the matching (1 + anchor_weight) ridge, so an anchored
+    solve must not be handed ``u_mat``.
+
+    On CUDA a spectral-profile solve without anchor and warm trips runs
+    in the loop kernel K3, whose products are float32 on the CUDA cores,
+    unless ``fused_loop`` is False (the batch solver's routing, kept on
+    K1/K2 until a measurement decides it); other solves run the per-op
+    loop (torch GEMMs, K1, K2), whose first ``min(warm_iters, maxiter)``
+    trips use TF32 GEMMs.
 
     Returns ``(opt_x, opt_y, converged, it)``: opt_x (G, P, r, n) with
     ``scale_by_row``, else the best column (G, P, 1, n); ``it`` (G, P)
     counts each lane's own trips.
     """
-    g_, p_, r, n = x0.re.shape
-    m = a.re.shape[-2]
-    lanes = g_ * p_
-    levels = ladder.ranks.shape[-1]
-    lad = LadderArrays(
-        ladder.ranks.expand(g_, p_, levels).reshape(lanes, levels).contiguous(),
-        ladder.fracs.expand(g_, p_, levels).reshape(lanes, levels).contiguous())
-    a_t = transpose(a)                                          # (G, n, m)
-    a_conj = conj(a)                                            # (G, m, n)
-    u_conj = conj(u_mat)                                        # U^T
-    b_lanes = b.reshape(lanes, m)
+    if prox_kind not in PROX_KINDS:
+        raise ValueError(f"prox_kind must be one of {PROX_KINDS}, got "
+                         f"{prox_kind!r}")
+    has_z = ladder is not None or prox_kind == "nuclear"
+    anchored = anchor is not None and anchor_weight > 0.0
+    if anchored and not has_z:
+        raise ValueError("proximal anchor requires the Z-constrained path")
+    if anchored and u_mat is not None:
+        raise ValueError("anchored solves must not pass a precomputed "
+                         "u_mat; the (1 + anchor_weight) ridge is folded "
+                         "into U internally")
+    if not has_z:
+        raise NotImplementedError("the Z-free path (no ladder) is not "
+                                  "ported")
+    if u_mat is None:
+        u_mat = precompute_u_pair(
+            a, reg=1.0 + (anchor_weight if anchored else 0.0))
+    g_, p_ = x0.re.shape[:2]
+    y, z, v_basis = admm_init_pair(a, b, x0, scale_by_row=scale_by_row,
+                                   nt=nt, nr=nr, ladder=ladder,
+                                   prox_kind=prox_kind)
+    mu = torch.full((g_, p_), mu0, dtype=torch.float32, device=x0.re.device)
+    kw = dict(scale_by_row=scale_by_row, rho=rho, tol_rel=tol_rel,
+              tol_abs=tol_abs, maxiter=maxiter)
 
-    def a_mul(x):
-        return _gemm(x, a_t)
+    if prox_kind == "spectral_profile":
+        lad = _lane_ladder(ladder, g_, p_)
+        if fused_loop and not anchored and warm_iters == 0:
+            return fused_infer_admm(
+                _contiguous(a), b.contiguous(), _contiguous(u_mat),
+                _contiguous(y), _contiguous(z), _contiguous(v_basis), mu, lad,
+                nt=nt, nr=nr, **kw)
 
-    def ah_mul(y):
-        return _gemm(y, a_conj)
-
-    # --- initialization (ref :300-321)
-    x = x0
-    ax = a_mul(x)
-    bn = torch.linalg.vector_norm(b, dim=-1)                    # (G, P)
-    if scale_by_row:
-        x = scale(x, (bn / torch.clamp(_norm(ax), min=1e-30))[..., None, None])
+        def z_prox(zz, vv, mu_l):
+            return fused_zprox_t(zz, vv, nt, nr, lad)
     else:
-        col = torch.sqrt(torch.clamp(torch.sum(ax.re ** 2 + ax.im ** 2,
-                                               dim=-1), min=1e-30))
-        x = scale(x, (bn[..., None] / col)[..., None])
-    ax = a_mul(x)
-    y = project_cols_to_magnitude(ax, b, scale_by_row)
-    aty = ah_mul(y)
-    # cold eigenbasis of the initial Gram, by eigh, once per solve
-    z, v_basis = (_groups(p, g_)
-                  for p in zprox_t_plain(_lanes(x), None, nt, nr, lad))
+        def z_prox(zz, vv, mu_l):
+            return _nuclear_prox_t(zz, 1.0 / mu_l), vv
 
-    dev, f32 = x0.re.device, torch.float32
-
-    def zeros(*shape):
-        return Pair(torch.zeros(shape, dtype=f32, device=dev),
-                    torch.zeros(shape, dtype=f32, device=dev))
-
-    def full(val, dtype=f32):
-        return torch.full((g_, p_), val, dtype=dtype, device=dev)
-
-    k_opt = r if scale_by_row else 1
-    state = _State(
-        y=y, z=z, m_dual=zeros(g_, p_, r, m), n_dual=zeros(g_, p_, r, n),
-        aty=aty, v_basis=v_basis, mu=full(mu0), last_res=full(math.inf),
-        opt_obj=full(math.inf), opt_x=zeros(g_, p_, k_opt, n),
-        opt_y=zeros(g_, p_, k_opt, m), it=full(0, torch.int32),
-        converged=full(False, torch.bool))
-
-    def body(c: _State) -> _State:
-        mu = c.mu
-        mu4 = mu[..., None, None]
-        inv4 = 1.0 / mu4
-        # X-update (ref :401-409)
-        t = Pair(c.y.re - c.m_dual.re * inv4, c.y.im - c.m_dual.im * inv4)
-        rhs = add(ah_mul(t), Pair(c.z.re - c.n_dual.re * inv4,
-                                  c.z.im - c.n_dual.im * inv4))
-        x = _gemm(rhs, u_conj)
-        ax = a_mul(x)
-        # Y-update fused with the M-dual update (ref :511-533, :336-337)
-        y, m_dual = fused_prox_dual_t(_lanes(ax), b_lanes, _lanes(c.m_dual),
-                                      mu.reshape(lanes),
-                                      per_entry=not scale_by_row)
-        y, m_dual = _groups(y, g_), _groups(m_dual, g_)
-        aty = ah_mul(y)
-        # Z-update (ref :423-485)
-        z_in = Pair(x.re + c.n_dual.re * inv4, x.im + c.n_dual.im * inv4)
-        z, v_basis = fused_zprox_t(_lanes(z_in), _lanes(c.v_basis), nt, nr,
-                                   lad)
-        z, v_basis = _groups(z, g_), _groups(v_basis, g_)
-        # N-dual update (ref :336-341)
-        j_m = sub(ax, y)
-        j_n = sub(x, z)
-        n_dual = Pair(c.n_dual.re + mu4 * j_n.re, c.n_dual.im + mu4 * j_n.im)
-
-        # best-so-far (ref :343-361)
-        if scale_by_row:
-            amp = torch.sqrt(torch.clamp(
-                torch.sum(ax.re ** 2 + ax.im ** 2, dim=-2), min=0.0))
-            obj = torch.linalg.vector_norm(amp - b, dim=-1)     # (G, P)
-            x_best, y_best = x, y
-        else:
-            amp = torch.sqrt(torch.clamp(ax.re ** 2 + ax.im ** 2, min=0.0))
-            objs = torch.linalg.vector_norm(amp - b[..., None, :], dim=-1)
-            j = torch.argmin(objs, dim=-1, keepdim=True)      # first on ties
-            obj = torch.gather(objs, -1, j)[..., 0]
-
-            def pick(p: Pair) -> Pair:
-                idx = j[..., None].expand(g_, p_, 1, p.re.shape[-1])
-                return Pair(torch.gather(p.re, 2, idx),
-                            torch.gather(p.im, 2, idx))
-
-            x_best, y_best = pick(x), pick(y)
-        better = obj < c.opt_obj
-        opt_x = _where(better, x_best, c.opt_x)
-        opt_y = _where(better, y_best, c.opt_y)
-        opt_obj = torch.minimum(obj, c.opt_obj)
-
-        # convergence tests (ref :363-375)
-        nax, ny, naty = _norm(ax), _norm(y), _norm(aty)
-        nx, nz = _norm(x), _norm(z)
-        res_prim = torch.sqrt(_fro2(j_m) + _fro2(j_n))
-        dz2 = _fro2(sub(z, c.z))
-        res_dual = mu * torch.sqrt(_fro2(sub(aty, c.aty)) + dz2)
-        res_comb = torch.sqrt(res_prim ** 2 + _fro2(sub(y, c.y)) + dz2)
-        big = torch.maximum(nax, ny) ** 2 + torch.maximum(nx, nz) ** 2
-        t_prim = tol_abs * math.sqrt((m + n) * r) + tol_rel * torch.sqrt(big)
-        t_dual = (tol_abs * math.sqrt(n * r * 2)
-                  + tol_rel * torch.sqrt(naty ** 2 + nz ** 2))
-        t_comb = (tol_abs * math.sqrt((m + n) * r * 2)
-                  + tol_rel * torch.sqrt(big + ny ** 2 + nz ** 2))
-        converged = (((res_prim < t_prim) & (res_dual < t_dual))
-                     | (res_comb < t_comb))
-        mu = torch.where(res_comb > c.last_res * 0.9, mu * rho, mu)
-        return _State(y=y, z=z, m_dual=m_dual, n_dual=n_dual, aty=aty,
-                      v_basis=v_basis, mu=mu, last_res=res_comb,
-                      opt_obj=opt_obj, opt_x=opt_x, opt_y=opt_y,
-                      it=c.it + 1, converged=converged)
-
-    def run(c: _State, bound: int) -> _State:
-        for trip in range(bound):
-            active = (c.it < bound) & ~c.converged
-            if trip % CHECK_EVERY == 0 and not bool(active.any()):
-                break
-            new = body(c)
-            c = _State(*(_where(active, nv, ov) for nv, ov in zip(new, c)))
-        return c
-
-    if warm_iters > 0:
-        with _tf32(True):
-            state = run(state, min(warm_iters, maxiter))
-        # coarse residuals must not certify convergence, and the coarse
-        # best-so-far objective must not block the float32 tail's better
-        # states: reset both at the phase switch (ref :571-578)
-        state = state._replace(converged=torch.zeros_like(state.converged),
-                               opt_obj=torch.full_like(state.opt_obj,
-                                                       math.inf))
-    state = run(state, maxiter)
-    return state.opt_x, state.opt_y, state.converged, state.it
+    return admm_loop(a, b, u_mat, y, z, v_basis, mu,
+                     prox_dual=fused_prox_dual_t, z_prox=z_prox,
+                     warm_iters=warm_iters,
+                     anchor=scale(anchor, anchor_weight) if anchored else None,
+                     **kw)
 
 
 # ---------------------------------------------------------------------------
 # the scaffold
+
+def _check_modes(prox_kind: str, eig_mode: str) -> None:
+    if prox_kind not in PROX_KINDS:
+        raise ValueError(f"prox_kind must be one of {PROX_KINDS}, got "
+                         f"{prox_kind!r}")
+    if eig_mode != "perturb":
+        raise NotImplementedError(
+            "the port runs eig_mode='perturb' only (the Jacobi eigensolver "
+            "existed because the TPU lacked eigh)")
+
 
 def _pass_bounds(cfg: AdmmConfig):
     """Trip bounds of the two passes (ref :649-658).  A capped pass at or
@@ -407,14 +333,16 @@ def _pass_bounds(cfg: AdmmConfig):
 
 
 def _impl_pair(a: Pair, b, xs: Pair, nt: int, nr: int, cfg: AdmmConfig,
-               ladder: LadderArrays, u_mat: Pair):
+               ladder: Optional[LadderArrays], u_mat: Pair,
+               prox_kind: str = "spectral_profile", fused_loop: bool = True):
     """inferLowRankImpl of every lane (ref :111-271): the scale_by_row
     pass, column orthonormalization, then the per-column pass.
     Returns ``(x (G, P, 1, n), converged, it (G, P, 2))``."""
     b1, b2 = _pass_bounds(cfg)
-    kw = dict(nt=nt, nr=nr, ladder=ladder, u_mat=u_mat, mu0=cfg.mu0,
-              rho=cfg.rho, tol_rel=cfg.tol_rel, tol_abs=cfg.tol_abs,
-              warm_iters=cfg.warm_iters)
+    kw = dict(nt=nt, nr=nr, ladder=ladder, u_mat=u_mat, prox_kind=prox_kind,
+              mu0=cfg.mu0, rho=cfg.rho, tol_rel=cfg.tol_rel,
+              tol_abs=cfg.tol_abs, warm_iters=cfg.warm_iters,
+              fused_loop=fused_loop)
     x, _, _, it1 = infer_admm_pair(a, b, xs, scale_by_row=True, maxiter=b1,
                                    **kw)
     x = _orthonormalize_cols_t(x)
@@ -423,8 +351,37 @@ def _impl_pair(a: Pair, b, xs: Pair, nt: int, nr: int, cfg: AdmmConfig,
     return x, converged, torch.stack([it1, it2], dim=-1)
 
 
+def _normalize_problem_pair(a: Pair, b, tol_abs: float, m_eff=None):
+    """Scale A to ||A||_F = sqrt(m_eff), each b (..., m) to unit norm
+    (ref :27-38).  ``m_eff`` defaults to the ACTIVE (b > 0) row count of
+    a single b: padding rows (A_i = 0, b_i = 0) then leave the
+    normalization, and so the ridge in U = inv(A^H A + I), as for the
+    unpadded problem.  Returns ``(a_n, b_n, a_norm, b_norm)``."""
+    if m_eff is None:
+        m_eff = torch.clamp(torch.sum(b > 0), min=1).to(torch.float32)
+    a_norm = norm(a) / m_eff ** 0.5
+    a_norm = torch.where(a_norm < tol_abs, 1.0, a_norm)
+    b_norm = torch.linalg.vector_norm(b, dim=-1)
+    b_norm = torch.where(b_norm < tol_abs, 1.0, b_norm)
+    return scale(a, 1.0 / a_norm), b / b_norm[..., None], a_norm, b_norm
+
+
 def _rows(a: Pair, idx) -> Pair:
     return Pair(a.re[idx], a.im[idx])
+
+
+def _rollback(x_max: Pair, x_ref: Pair, q_max, cfg: AdmmConfig) -> Pair:
+    """Keep the refine's result unless the selected restart was good and
+    the refine wandered off it: similarity |<x_max, x_ref>| /
+    (||x_max|| ||x_ref||) below the threshold (ref :93-98)."""
+    dims = (-2, -1)
+    dot_re = torch.sum(x_max.re * x_ref.re + x_max.im * x_ref.im, dim=dims)
+    dot_im = torch.sum(x_max.re * x_ref.im - x_max.im * x_ref.re, dim=dims)
+    similarity = (torch.sqrt(dot_re ** 2 + dot_im ** 2)
+                  / torch.clamp(norm(x_max) * norm(x_ref), min=1e-30))
+    rollback = ((q_max > cfg.quality_threshold)
+                & (similarity < cfg.similarity_threshold))
+    return where(rollback, x_max, x_ref)
 
 
 class _FirstPass(NamedTuple):
@@ -439,10 +396,12 @@ class _FirstPass(NamedTuple):
     b_norm: torch.Tensor
 
 
-def _batch_first_pass(a: Pair, b_batch, trains, tests, ladder: LadderArrays,
-                      nt: int, nr: int, cfg: AdmmConfig, m_eff: int,
+def _batch_first_pass(a: Pair, b_batch, trains, tests,
+                      ladder: Optional[LadderArrays], nt: int, nr: int,
+                      cfg: AdmmConfig, m_eff: int,
                       generator: Optional[torch.Generator],
-                      xs: Optional[Pair] = None) -> _FirstPass:
+                      xs: Optional[Pair] = None,
+                      prox_kind: str = "spectral_profile") -> _FirstPass:
     """Stage 1: normalize, then every (restart, instance) first-pass solve
     (ref: inferLowRankV4_multi.m:27-68).  Lanes are restart-major: group
     R shares its train split's codebook rows and U = inv(A^H A + I).
@@ -452,20 +411,16 @@ def _batch_first_pass(a: Pair, b_batch, trains, tests, ladder: LadderArrays,
     """
     n = a.re.shape[-1]
     r = min(cfg.rank, trains.shape[1], n)
-    a_norm = _norm(a) / math.sqrt(m_eff)
-    a_norm = torch.where(a_norm < cfg.tol_abs, 1.0, a_norm)
-    a_n = scale(a, 1.0 / a_norm)
-    b_norm = torch.linalg.vector_norm(b_batch, dim=-1)
-    b_norm = torch.where(b_norm < cfg.tol_abs, 1.0, b_norm)
-    b_n = b_batch / b_norm[:, None]
-
+    a_n, b_n, a_norm, b_norm = _normalize_problem_pair(a, b_batch,
+                                                       cfg.tol_abs, m_eff)
     a_tr, a_te = _rows(a_n, trains), _rows(a_n, tests)          # (R, k, n)
     b_tr = b_n[:, trains].transpose(0, 1)                       # (R, B, k)
     b_te = b_n[:, tests].transpose(0, 1)
     u_tr = precompute_u_pair(a_tr)
     if xs is None:
         xs = spectral_initialize_pair(a_tr, b_tr, r, generator)
-    x, _, it = _impl_pair(a_tr, b_tr, xs, nt, nr, cfg, ladder, u_tr)
+    x, _, it = _impl_pair(a_tr, b_tr, xs, nt, nr, cfg, ladder, u_tr,
+                          prox_kind, fused_loop=False)
     q = _quality_pair(a_te, b_te, x)
     return _FirstPass(x, q, it, xs, u_tr, a_n, b_n, a_norm, b_norm)
 
@@ -484,14 +439,17 @@ def _batch_retry(fp: _FirstPass, rest_idx, inst_idx, trains, tests,
     xs = Pair(fp.xs.re[rest_idx, inst_idx][:, None],
               fp.xs.im[rest_idx, inst_idx][:, None])
     u = _rows(fp.u_tr, rest_idx)
-    x, _, it = _impl_pair(a_tr, b_tr, xs, nt, nr, cfg, ladder_r1, u)
+    x, _, it = _impl_pair(a_tr, b_tr, xs, nt, nr, cfg, ladder_r1, u,
+                          fused_loop=False)
     q = _quality_pair(a_te, b_te, x)
     return Pair(x.re[:, 0, 0], x.im[:, 0, 0]), q[:, 0], it.sum(-1)[:, 0]
 
 
 def _batch_refine(fp: _FirstPass, x: Pair, q, it_sum, rank_one,
-                  lad_normal: LadderArrays, lad_r1: LadderArrays,
-                  nt: int, nr: int, cfg: AdmmConfig) -> PairAdmmResult:
+                  lad_normal: Optional[LadderArrays],
+                  lad_r1: Optional[LadderArrays],
+                  nt: int, nr: int, cfg: AdmmConfig,
+                  prox_kind: str = "spectral_profile") -> PairAdmmResult:
     """Stage 3: best restart per instance (first max on ties), full-data
     refinement with similarity rollback, rescale
     (ref: inferLowRankV4_multi.m:79-107).  ``x`` (R, B, n), ``q`` and
@@ -501,26 +459,21 @@ def _batch_refine(fp: _FirstPass, x: Pair, q, it_sum, rank_one,
     ar = torch.arange(batch, device=q.device)
     j = torch.argmax(q, dim=0)                                  # (B,)
     q_max = q[j, ar]
-    r1 = rank_one[j, ar][:, None]
-    lad = LadderArrays(torch.where(r1, lad_r1.ranks, lad_normal.ranks)[None],
-                       torch.where(r1, lad_r1.fracs, lad_normal.fracs)[None])
+    lad = None
+    if prox_kind != "nuclear":
+        r1 = rank_one[j, ar][:, None]
+        lad = LadderArrays(
+            torch.where(r1, lad_r1.ranks, lad_normal.ranks)[None],
+            torch.where(r1, lad_r1.fracs, lad_normal.fracs)[None])
     a_full = Pair(fp.a_n.re[None], fp.a_n.im[None])             # (1, m, n)
     x_max = Pair(x.re[j, ar][None, :, None],
                  x.im[j, ar][None, :, None])                    # (1, B, 1, n)
     x_ref, _, _, it_ref = infer_admm_pair(
         a_full, fp.b_n[None], x_max, scale_by_row=True, nt=nt, nr=nr,
-        ladder=lad, u_mat=precompute_u_pair(a_full), mu0=cfg.mu0,
-        rho=cfg.rho, tol_rel=cfg.tol_rel, tol_abs=cfg.tol_abs,
-        maxiter=cfg.maxiter)
-    # similarity |<x_max, x_ref>| / (||x_max|| ||x_ref||)  (ref :93-98)
-    dims = (-2, -1)
-    dot_re = torch.sum(x_max.re * x_ref.re + x_max.im * x_ref.im, dim=dims)
-    dot_im = torch.sum(x_max.re * x_ref.im - x_max.im * x_ref.re, dim=dims)
-    similarity = (torch.sqrt(dot_re ** 2 + dot_im ** 2)
-                  / torch.clamp(_norm(x_max) * _norm(x_ref), min=1e-30))
-    rollback = ((q_max[None] > cfg.quality_threshold)
-                & (similarity < cfg.similarity_threshold))      # (1, B)
-    xo = _where(rollback, x_max, x_ref)
+        ladder=lad, u_mat=precompute_u_pair(a_full), prox_kind=prox_kind,
+        mu0=cfg.mu0, rho=cfg.rho, tol_rel=cfg.tol_rel, tol_abs=cfg.tol_abs,
+        maxiter=cfg.maxiter, fused_loop=False)
+    xo = _rollback(x_max, x_ref, q_max[None], cfg)
     s = (fp.b_norm / fp.a_norm)[:, None]
     return PairAdmmResult(
         x=scale(Pair(xo.re[0, :, 0], xo.im[0, :, 0]), s), quality=q_max,
@@ -531,12 +484,39 @@ def _batch_refine(fp: _FirstPass, x: Pair, q, it_sum, rank_one,
 def _random_splits(m: int, frac: float, n_restarts: int,
                    generator: Optional[torch.Generator]):
     """Per-restart (train, test) row permutations, floor(m * frac) train
-    rows, drawn on the CPU from ``generator``."""
+    rows, drawn on the CPU from ``generator`` (JAX's ``_split``)."""
     k = int(math.floor(m * frac))
     perms = [torch.randperm(m, generator=generator)
              for _ in range(n_restarts)]
     return (torch.stack([p[:k] for p in perms]),
             torch.stack([p[k:] for p in perms]))
+
+
+def _splits(splits, m: int, cfg: AdmmConfig, n_restarts: int, generator,
+            dev):
+    """(trains (R, k), tests (R, m - k)) on ``dev``: drawn, or the
+    test-only ``splits`` given in the JAX package's layout."""
+    if splits is None:
+        trains, tests = _random_splits(m, cfg.cc_frac, n_restarts, generator)
+    else:
+        trains, tests = (torch.tensor(np.asarray(s), dtype=torch.int64)
+                         for s in splits)
+    return trains.to(dev), tests.to(dev)
+
+
+def _ladders(nt: int, nr: int, n: int, cfg: AdmmConfig, prox_kind: str,
+             dev):
+    """``ladder(m, rank_one)``: the spectral-profile ladder as tensors, or
+    None for the nuclear prox."""
+    pl = cfg.profile
+
+    def ladder(mm: int, rank_one: bool):
+        if prox_kind == "nuclear":
+            return None
+        return profile_ladder_arrays(nt, nr, mm, n, rank_one, pl.rank_mults,
+                                     pl.fractions, mode=pl.ladder,
+                                     device=dev)
+    return ladder
 
 
 def solve_lowrank_multi_pair_batch(generator: Optional[torch.Generator],
@@ -552,7 +532,8 @@ def solve_lowrank_multi_pair_batch(generator: Optional[torch.Generator],
     ``a``: (m, n) pair; ``b_batch``: (B, m) float32, on the device the
     solve runs on.  Three stages with one host readback between them (the
     (R, B) quality gate): the first pass of every (restart, instance),
-    the rank-1 retry of exactly the poor pairs, and the refine.  Runs with
+    the rank-1 retry of exactly the poor pairs, and the refine.  The
+    nuclear prox has no retry (ref: JAX ``pair_solver.py:909``).  Runs with
     ``torch.backends.cuda.matmul.allow_tf32`` False (JAX's "float32")
     except the ``cfg.warm_iters`` trips of each first-pass solve.
 
@@ -563,15 +544,11 @@ def solve_lowrank_multi_pair_batch(generator: Optional[torch.Generator],
 
     Returns a PairAdmmResult with a leading batch axis.
     """
-    if prox_kind != "spectral_profile" or eig_mode != "perturb":
-        raise NotImplementedError(
-            "the port's batch solver runs prox_kind='spectral_profile' with "
-            "eig_mode='perturb' only")
+    _check_modes(prox_kind, eig_mode)
     n_restarts = cfg.n_restarts if n_restarts is None else n_restarts
     batch = b_batch.shape[0]
     m, n = a.re.shape
     dev = a.re.device
-    pl = cfg.profile
 
     # active-row accounting: b == 0 rows are inactive padding by contract;
     # one shared codebook admits only one active count
@@ -588,31 +565,22 @@ def solve_lowrank_multi_pair_batch(generator: Optional[torch.Generator],
             "otherwise pad uniformly.")
     m_act = max(m_act, 1)
 
-    if splits is None:
-        trains, tests = _random_splits(m, cfg.cc_frac, n_restarts, generator)
-    else:
-        trains, tests = (torch.tensor(np.asarray(s), dtype=torch.int64)
-                         for s in splits)
-    trains, tests = trains.to(dev), tests.to(dev)
+    trains, tests = _splits(splits, m, cfg, n_restarts, generator, dev)
     if xs is not None:
         xs = Pair(xs.re.transpose(0, 1).contiguous(),
                   xs.im.transpose(0, 1).contiguous())
     lm_tr = int(math.floor(m_act * cfg.cc_frac))
-
-    def ladder(mm, rank_one):
-        return profile_ladder_arrays(nt, nr, mm, n, rank_one, pl.rank_mults,
-                                     pl.fractions, mode=pl.ladder,
-                                     device=dev)
+    ladder = _ladders(nt, nr, n, cfg, prox_kind, dev)
 
     with _tf32(False):
         fp = _batch_first_pass(a, b_batch, trains, tests,
                                ladder(lm_tr, False), nt, nr, cfg, m_act,
-                               generator, xs)
+                               generator, xs, prox_kind)
         x = Pair(fp.x.re[:, :, 0].clone(), fp.x.im[:, :, 0].clone())
         q, it = fp.q, fp.it.sum(-1)                             # (R, B)
         rank_one = torch.zeros_like(q, dtype=torch.bool)
         poor = (q < cfg.quality_threshold).cpu()                # host gate
-        if bool(poor.any()):
+        if prox_kind != "nuclear" and bool(poor.any()):
             rest_idx, inst_idx = (i.to(dev) for i in torch.nonzero(
                 poor, as_tuple=True))
             xr, qr, itr = _batch_retry(fp, rest_idx, inst_idx, trains, tests,
@@ -624,17 +592,139 @@ def solve_lowrank_multi_pair_batch(generator: Optional[torch.Generator],
             rank_one[rest_idx, inst_idx] = True
         return _batch_refine(fp, x, q, it.sum(0), rank_one,
                              ladder(m_act, False), ladder(m_act, True),
-                             nt, nr, cfg)
+                             nt, nr, cfg, prox_kind)
 
 
-def solve_lowrank_multi_pair(*args, **kwargs):
-    """The single-solve scaffold is not ported yet."""
-    raise NotImplementedError(
-        "solve_lowrank_multi_pair is not ported yet; use "
-        "solve_lowrank_multi_pair_batch with a batch of one")
+def solve_lowrank_multi_pair(generator: Optional[torch.Generator], a: Pair,
+                             b, nt: int, nr: int,
+                             cfg: AdmmConfig = AdmmConfig(),
+                             prox_kind: str = "spectral_profile",
+                             eig_mode: str = "perturb",
+                             n_restarts: Optional[int] = None,
+                             ladder_m: Optional[int] = None, *,
+                             splits=None, xs: Optional[Pair] = None
+                             ) -> PairAdmmResult:
+    """One recovery: the 2ACE "A2" solver (ref: inferLowRankV4_multi.m:5-109).
+
+    ``a``: (m, n) pair; ``b``: (m,) float32 magnitudes, on the device the
+    solve runs on.  Normalize; run the restarts side by side (G = R
+    groups, each with its own train split and U = inv(A^H A + I)):
+    spectral init, the two passes, held-out quality; re-solve the poor
+    restarts (quality below ``cfg.quality_threshold``) with the rank-1
+    ladder, a host gate; keep the best restart (first on ties); refine it
+    on all the data with that restart's ladder, full ``cfg.maxiter`` and
+    no warm trips; roll back if the refine wandered off; rescale.  The
+    nuclear prox has no retry.
+
+    Rows with ``b == 0`` are inactive padding by contract (their A rows
+    must be zero too): normalization follows the active count, and
+    ``ladder_m`` gives the active count the constraint ladders follow
+    (else the padded ``m``, as in JAX).  On CUDA, at the default cold
+    config every inner solve runs in the loop kernel K3.
+
+    ``generator`` draws the splits and the spectral-init start blocks (on
+    the CPU).  Test-only: ``splits`` = (trains (R, k), tests (R, m - k))
+    row indices and ``xs`` = the spectral init (R, r, n) of the normalized
+    problem, in the JAX package's layout, replace those draws.
+
+    Returns a PairAdmmResult of scalars and x (n,).
+    """
+    _check_modes(prox_kind, eig_mode)
+    n_restarts = cfg.n_restarts if n_restarts is None else n_restarts
+    m, n = a.re.shape
+    dev = a.re.device
+    r = min(cfg.rank, m, n)
+    a_n, b_n, a_norm, b_norm = _normalize_problem_pair(a, b, cfg.tol_abs)
+    lm_full = m if ladder_m is None else ladder_m
+    lm_tr = int(math.floor(lm_full * cfg.cc_frac))
+    ladder = _ladders(nt, nr, n, cfg, prox_kind, dev)
+    trains, tests = _splits(splits, m, cfg, n_restarts, generator, dev)
+    a_tr, a_te = _rows(a_n, trains), _rows(a_n, tests)          # (R, k, n)
+    b_tr, b_te = b_n[trains][:, None], b_n[tests][:, None]      # (R, 1, k)
+    u_tr = precompute_u_pair(a_tr)
+
+    with _tf32(False):
+        if xs is None:
+            xs = spectral_initialize_pair(a_tr, b_tr, r, generator)
+        else:
+            xs = Pair(xs.re[:, None].to(dev), xs.im[:, None].to(dev))
+        x, _, it = _impl_pair(a_tr, b_tr, xs, nt, nr, cfg,
+                              ladder(lm_tr, False), u_tr, prox_kind)
+        q = _quality_pair(a_te, b_te, x)[:, 0]                  # (R,)
+        it = it.sum(-1)[:, 0]
+        x = Pair(x.re[:, 0, 0].clone(), x.im[:, 0, 0].clone())  # (R, n)
+        rank_one = np.zeros(n_restarts, dtype=bool)
+        if prox_kind != "nuclear":
+            poor = (q < cfg.quality_threshold).cpu().numpy()    # host gate
+            if poor.any():
+                # JAX re-solves every restart and keeps the poor ones;
+                # solving only the poor ones gives the same x, q and iters
+                idx = torch.as_tensor(np.nonzero(poor)[0], device=dev)
+                xr, _, itr = _impl_pair(
+                    _rows(a_tr, idx), b_tr[idx], _rows(xs, idx), nt, nr, cfg,
+                    ladder(lm_tr, True), _rows(u_tr, idx))
+                q[idx] = _quality_pair(_rows(a_te, idx), b_te[idx], xr)[:, 0]
+                x.re[idx] = xr.re[:, 0, 0]
+                x.im[idx] = xr.im[:, 0, 0]
+                it[idx] += itr.sum(-1)[:, 0]
+                rank_one = poor
+
+        j = int(torch.argmax(q))                                # first max
+        q_max = q[j]
+        x_max = Pair(x.re[j][None, None, None], x.im[j][None, None, None])
+        a_full = Pair(a_n.re[None], a_n.im[None])               # (1, m, n)
+        x_ref, _, _, it_ref = infer_admm_pair(
+            a_full, b_n[None, None], x_max, scale_by_row=True, nt=nt, nr=nr,
+            ladder=ladder(lm_full, bool(rank_one[j])), prox_kind=prox_kind,
+            mu0=cfg.mu0, rho=cfg.rho, tol_rel=cfg.tol_rel,
+            tol_abs=cfg.tol_abs, maxiter=cfg.maxiter)
+        xo = _rollback(x_max, x_ref, q_max, cfg)
+    s = b_norm / a_norm
+    return PairAdmmResult(
+        x=Pair(xo.re[0, 0, 0] * s, xo.im[0, 0, 0] * s), quality=q_max,
+        converged=torch.ones((), dtype=torch.bool, device=dev),
+        iters=it.sum() + it_ref[0, 0])
 
 
-def refine_lowrank_pair(*args, **kwargs):
-    """The warm-started refine (and its proximal anchor) is not ported
-    yet."""
-    raise NotImplementedError("refine_lowrank_pair is not ported yet")
+def refine_lowrank_pair(a: Pair, b, x0: Pair, nt: int, nr: int,
+                        cfg: AdmmConfig = AdmmConfig(),
+                        prox_kind: str = "spectral_profile",
+                        ladder_m: Optional[int] = None,
+                        use_rank_one: bool = False,
+                        anchor_weight: float = 0.0) -> PairAdmmResult:
+    """Warm-started refine: the full-data refinement step
+    (ref: inferLowRankV4_multi.m:89-101) as an entry of its own, seeded by
+    ``x0`` (n,) instead of the spectral init (the mobility tracker's
+    window-to-window warm start).
+
+    ``anchor_weight > 0`` adds ``anchor_weight * ||x - x0||^2`` to the
+    X-subproblem, so directions the current rows do not measure stay at
+    the previous estimate.  The solve runs ``cfg.maxiter`` trips at most,
+    the first ``cfg.warm_iters`` of them with TF32 GEMMs on CUDA.
+    ``quality`` is the fit 1 - ||(|A x|) - b|| / ||b|| over all the data.
+    On CUDA an anchored or warm refine runs the per-op loop (K1, K2), a
+    plain one the loop kernel K3.
+    """
+    _check_modes(prox_kind, "perturb")
+    m, n = a.re.shape
+    a_n, b_n, a_norm, b_norm = _normalize_problem_pair(a, b, cfg.tol_abs)
+    lm = m if ladder_m is None else ladder_m
+    x0n = scale(Pair(x0.re[None, None, None], x0.im[None, None, None]),
+                a_norm / b_norm)                                # (1, 1, 1, n)
+    ladder = _ladders(nt, nr, n, cfg, prox_kind, a.re.device)(lm,
+                                                              use_rank_one)
+    a_full = Pair(a_n.re[None], a_n.im[None])
+    b_full = b_n[None, None]
+    with _tf32(False):
+        x, _, converged, it = infer_admm_pair(
+            a_full, b_full, x0n, scale_by_row=True, nt=nt, nr=nr,
+            ladder=ladder, prox_kind=prox_kind, mu0=cfg.mu0, rho=cfg.rho,
+            tol_rel=cfg.tol_rel, tol_abs=cfg.tol_abs, maxiter=cfg.maxiter,
+            warm_iters=cfg.warm_iters,
+            anchor=x0n if anchor_weight > 0.0 else None,
+            anchor_weight=anchor_weight)
+        q = _quality_pair(a_full, b_full, x)[0, 0]
+    s = b_norm / a_norm
+    return PairAdmmResult(x=Pair(x.re[0, 0, 0] * s, x.im[0, 0, 0] * s),
+                          quality=q, converged=converged[0, 0],
+                          iters=it[0, 0])
