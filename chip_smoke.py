@@ -15,13 +15,28 @@ Phases, each printing its own line; any failure raises and exits non-zero:
   3. the batch slice: ``solve_lowrank_multi_pair_batch`` on the bench.py
      solve workload (seed 1, 64 two-path 16x16 channels, one shared 2-bit
      codebook, m = 1024, maxiter 500, warm_iters 80, pass caps 120/160),
-     once to warm up and once timed, with K1's and K2's launch counts;
+     once to warm up and once timed, with K4's, K1's and K2's launch
+     counts;
   4. the single-recovery slice: ``solve_lowrank_multi_pair`` at the cold
      config (maxiter 500) through bench.py's single-latency codebook (seed
      3, 16x16, m = 1024): one warm-up and ten timed solves of bench.py's
      random complex x, then of a two-path channel, with K3's launch count;
      then one anchored ``refine_lowrank_pair`` seeded by the two-path
-     result, which runs K1 and K2.
+     result, which runs K4, K1 and K2;
+  5. the mobility tracker: ``track`` with the four trackers of
+     scripts/bench_mobility_r05.py on its workload (rebuilt with numpy:
+     16x16, 40 windows of 64 kron probes, max_window 80 and 256,
+     maxiter 500) after one short warm-up track each: windows/s, median
+     per-window ms, tracked NMSE, the budget branches, launches and a
+     profiled window; then a 10-window ``track_simulated`` on a
+     ``brownian_trace``.
+
+Phase 2 also holds K4 (the per-op loop's pair GEMM) against its plain
+version at the batch solver's, the anchored refine's (one row: the warm
+trackers' m 80 and 256, phase 4's m 1024) and a ragged shape.  Each
+path (the batch solve, the single solves, the refine, each tracker) is
+driven with the launch counts set to 0 just before it and read just
+after, and fails if a kernel it runs was never launched.
 
 The last three lines are a JSON summary of the kernels, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
@@ -39,17 +54,18 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from twoace_tpu_torch import interop  # noqa: E402
-from twoace_tpu_torch.config import AdmmConfig  # noqa: E402
+from twoace_tpu_torch.config import AdmmConfig, ArrayConfig  # noqa: E402
 from twoace_tpu_torch.ops.cplx import LadderArrays, Pair  # noqa: E402
 from twoace_tpu_torch.ops import pair_solver  # noqa: E402
 from twoace_tpu_torch.ops.kernels import (  # noqa: E402
     _build, fused_infer_admm, fused_prox_dual_t, fused_zprox_t,
-    infer_admm_plain, launch_counts, prox_dual_t_plain, reset_launch_counts,
-    zprox_t_plain)
+    infer_admm_plain, launch_counts, pair_matmul, pair_matmul_plain,
+    prox_dual_t_plain, reset_launch_counts, zprox_t_plain)
 from twoace_tpu_torch.ops.pair_solver import (  # noqa: E402
-    refine_lowrank_pair, solve_lowrank_multi_pair,
+    no_tf32, refine_lowrank_pair, solve_lowrank_multi_pair,
     solve_lowrank_multi_pair_batch)
 from twoace_tpu_torch.ops.prox import profile_ladder_arrays  # noqa: E402
+from twoace_tpu_torch.pipeline import mobility  # noqa: E402
 from twoace_tpu_torch.utils.metrics import nmse_h_projection  # noqa: E402
 
 NT = NR = 16
@@ -74,6 +90,20 @@ K3_TRIPS = 30
 K3_WARM = 50
 K3_MU0 = 0.4
 SINGLE_REPS = 10
+#: K4 against its plain version: max |difference| over max |plain|.
+#: Measured 0 (bit-identical) at the batch shapes on an H100 80GB HBM3
+#: at 700 W: both sum K in order with FMAs.
+K4_RTOL = 1e-5
+#: K4's shapes, (G, M, K, N): the batch solver's three products (G = 3
+#: restarts, M = 64 instances x r 20); the anchored refine's, whose seed
+#: is one vector (G 1, M = r 1, n 256) at the warm trackers' windows
+#: (m 80, 256) and phase 4's m 1024; and a ragged one
+K4_SHAPES = [(RESTARTS, SOLVE_BATCH * R, M_TRAIN, N),
+             (RESTARTS, SOLVE_BATCH * R, N, N),
+             (RESTARTS, SOLVE_BATCH * R, N, M_TRAIN),
+             *dict.fromkeys((1, 1, k, n) for m in (80, 256, M)
+                            for k, n in ((m, N), (N, N), (N, m))),
+             (2, 70, 97, 51)]
 
 #: H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 flop/s
 #: outside the tensor cores
@@ -221,6 +251,7 @@ def phase2_kernels():
         max_abs_err=err, ms=ms, plain_ms=plain,
         **bound(nbytes(z, v0, lad, zn, vn), k2_flops), library_ms=None)
     summary["fused_infer_admm"] = phase2_k3()
+    summary["pair_matmul"] = phase2_k4()
     return summary
 
 
@@ -330,6 +361,42 @@ def phase2_k3():
     return out[(M_TRAIN, True)]
 
 
+def phase2_k4():
+    """K4 against its plain version (TF32 off) at K4_SHAPES, with the
+    times of K4, the plain version and one complex64 ``torch.matmul`` on
+    tensors built beforehand, beside the bound: 6 M N K G flops at the
+    float32 rate against each operand read and the output written once."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {}
+    with no_tf32():
+        for g, m, k, n in K4_SHAPES:
+            a, b = (Pair(*(torch.randn(g, rows, cols, generator=gen,
+                                       device="cuda") for _ in range(2)))
+                    for rows, cols in ((m, k), (k, n)))
+            got = pair_matmul(a, b)
+            want = pair_matmul_plain(a, b)
+            torch.cuda.synchronize()
+            rel = max(float((x - w).abs().max() / w.abs().max())
+                      for x, w in zip(got, want))
+            if not rel <= K4_RTOL:
+                raise RuntimeError(f"K4 disagrees with its plain version at "
+                                   f"{(g, m, k, n)}: {rel:.3e} > {K4_RTOL}")
+            ac, bc = torch.complex(*a), torch.complex(*b)
+            ms = cuda_ms(lambda: pair_matmul(a, b))
+            plain = cuda_ms(lambda: pair_matmul_plain(a, b))
+            lib = cuda_ms(lambda: torch.matmul(ac, bc))
+            bnd = bound(nbytes(a, b, got), 6 * g * m * k * n)
+            print(f"[2 K4 pair_matmul] ({g}, {m}, {k}) @ ({g}, {k}, {n}): "
+                  f"max rel err {rel:.3e} (tol {K4_RTOL}) | kernel {ms:.4f} "
+                  f"ms | plain {plain:.4f} ms | complex64 torch.matmul "
+                  f"{lib:.4f} ms | bound {bnd['bound_ms']:.4f} ms "
+                  f"({bnd['bound_by']})", flush=True)
+            out[(g, m, k, n)] = dict(
+                max_abs_err=max_err(got, want), ms=ms, plain_ms=plain, **bnd,
+                library_ms=lib)
+    return out[K4_SHAPES[0]]
+
+
 def build_solve_problem(seed=1, batch=SOLVE_BATCH, m=M):
     """bench.py's solve workload, rebuilt with numpy: ``batch`` two-path
     16x16 channels through one shared 2-bit random codebook."""
@@ -401,9 +468,8 @@ def phase3_slice():
         raise RuntimeError(f"median NMSE {med:.2f} dB above -60 dB")
     if qmin < 0.98:
         raise RuntimeError(f"min quality {qmin:.4f} below 0.98")
-    for name in ("fused_prox_dual_t", "fused_zprox_t"):
-        if launches[name] <= 0:
-            raise RuntimeError(f"{name} was never launched on the main path")
+    require_launched(launches, ("fused_prox_dual_t", "fused_zprox_t",
+                                "pair_matmul"), "the batch solve")
     return launches
 
 
@@ -414,30 +480,36 @@ def nmse_db(x, x_true):
     return float(10 * torch.log10(torch.clamp(err, min=1e-30)))
 
 
-def profile_single(solve):
-    """One solve under torch.profiler: device time by kernel against the
-    solve's wall time."""
+def require_launched(counts, names, path):
+    for name in names:
+        if counts[name] <= 0:
+            raise RuntimeError(f"{name} was never launched by {path}")
+
+
+def profile_call(label, fn):
+    """One call of ``fn`` under torch.profiler: device time by kernel
+    against the call's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solve(SINGLE_REPS + 1)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages()
               if getattr(e, "self_device_time_total", 0) > 0]
     total = sum(e.self_device_time_total for e in events) / 1e3
     if total <= 0:
-        print("[4 profile] device time not measured (the profiler saw no "
+        print(f"{label} device time not measured (the profiler saw no "
               "CUDA kernels)", flush=True)
         return
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     parts = " | ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} "
                        f"ms x{e.count}" for e in top)
-    print(f"[4 profile] two-path solve under the profiler: wall "
-          f"{wall_ms:.2f} ms, device busy {total:.2f} ms "
-          f"({100 * total / wall_ms:.1f}%) | {parts}", flush=True)
+    print(f"{label} under the profiler: wall {wall_ms:.2f} ms, device busy "
+          f"{total:.2f} ms ({100 * total / wall_ms:.1f}%) | {parts}",
+          flush=True)
 
 
 def single_workload():
@@ -500,7 +572,8 @@ def phase4_single():
               f"{counts['fused_infer_admm']} ({counts})", flush=True)
         results[name] = dict(nmse=float(np.median(nmse)), qmin=min(qual),
                              res=res, bt=bt, x_true=x_true, solve=solve)
-    profile_single(results["two-path x"]["solve"])
+    profile_call("[4 profile] two-path solve",
+                 lambda: results["two-path x"]["solve"](SINGLE_REPS + 1))
 
     # bench.py's random x is full-rank, which the spectral-profile ladder
     # does not model: the JAX package's own solver stops near -14 dB at
@@ -518,9 +591,8 @@ def phase4_single():
     if two["qmin"] < 0.98:
         raise RuntimeError(f"two-path x: min quality {two['qmin']:.4f} "
                            "below 0.98")
-    if k3_launches <= 0:
-        raise RuntimeError("fused_infer_admm was never launched on the "
-                           "single-recovery path")
+    require_launched({"fused_infer_admm": k3_launches},
+                     ("fused_infer_admm",), "the single-recovery path")
 
     # the anchored refine, seeded by the two-path result: the per-op loop
     reset_launch_counts()
@@ -535,28 +607,239 @@ def phase4_single():
           f"two-path result: {ref_ms:.2f} ms | iters {int(ref.iters)} | "
           f"NMSE {ref_db:.2f} dB | quality {float(ref.quality):.6f} | "
           f"launches {counts}", flush=True)
-    for name in ("fused_prox_dual_t", "fused_zprox_t"):
-        if counts[name] <= 0:
-            raise RuntimeError(f"{name} was never launched by the anchored "
-                               "refine")
+    require_launched(counts, ("fused_prox_dual_t", "fused_zprox_t",
+                              "pair_matmul"), "the anchored refine")
     if ref_db > -60.0 or float(ref.quality) < 0.98:
         raise RuntimeError(f"anchored refine: NMSE {ref_db:.2f} dB, quality "
                            f"{float(ref.quality):.4f}")
-    return k3_launches
+    return {"fused_infer_admm": k3_launches, **{
+        k: v for k, v in counts.items() if k != "fused_infer_admm"}}
+
+
+MOB_WINDOWS = 40
+MOB_JUMP_AT = 20
+MOB_RX_SECTORS = MOB_TX_SECTORS = 8
+MOB_RX_CB = 64
+
+
+def mobility_workload(n_windows=MOB_WINDOWS, jump_at=MOB_JUMP_AT):
+    """scripts/bench_mobility_r05.py's workload (``build_workload``,
+    :49-112), rebuilt with numpy from the same seed: 16x16, windows of
+    8 Rx x 8 Tx kron probes, a rank-1 LOS channel drifting 0.1 deg a
+    window with a 25 deg Rx jump at window 20.  Two probe streams from the
+    same kron cross product: the sector stream (the Rx set rotates
+    through a fixed 64-entry codebook, 7/8 of it shared by consecutive
+    windows) and the fresh-pair stream (an independent (w, f) pair per
+    probe).  Returns ``(rows, amps, rows_fresh, amps_fresh, vhs, ats,
+    p)``."""
+    rng = np.random.default_rng(0)
+    p = MOB_RX_SECTORS * MOB_TX_SECTORS
+
+    def steer(nn, ang):
+        return np.exp(1j * np.pi * np.arange(nn) * np.sin(ang)) / np.sqrt(nn)
+
+    def chan(a_rx, a_tx):
+        return np.outer(steer(NR, a_rx), steer(NT, a_tx).conj()).T.reshape(-1)
+
+    def beam(nn):
+        return np.exp(1j * rng.integers(0, 4, nn) * (np.pi / 2)) / np.sqrt(nn)
+
+    rx_cb = np.exp(1j * rng.integers(0, 4, (MOB_RX_CB, NR))
+                   * (np.pi / 2)) / np.sqrt(NR)
+    rows = []
+    for t in range(n_windows):
+        for j in range(MOB_RX_SECTORS):
+            w = rx_cb[(t + j) % MOB_RX_CB]
+            for _ in range(MOB_TX_SECTORS):
+                rows.append(np.kron(beam(NT), w))
+    rows = np.stack(rows).astype(np.complex64)
+    rows_fresh = []
+    for _ in range(n_windows * p):
+        w = beam(NR)
+        rows_fresh.append(np.kron(beam(NT), w))
+    rows_fresh = np.stack(rows_fresh).astype(np.complex64)
+
+    g = 1.5 * np.exp(1j * 0.3)
+    a_rx, a_tx = 0.4, -0.7
+    amps = np.zeros(n_windows * p, np.float32)
+    amps_fresh = np.zeros(n_windows * p, np.float32)
+    vhs, ats = [], []
+    for t in range(n_windows):
+        drx = 0.1 * t * np.pi / 180 + (25 * np.pi / 180 if t >= jump_at else 0)
+        dtx = -0.1 * t * np.pi / 180
+        vh = g * chan(a_rx + drx, a_tx + dtx)
+        vhs.append(vh)
+        ats.append(steer(NT, a_tx + dtx))
+        amps[t * p:(t + 1) * p] = np.abs(rows[t * p:(t + 1) * p] @ vh)
+        amps_fresh[t * p:(t + 1) * p] = np.abs(
+            rows_fresh[t * p:(t + 1) * p] @ vh)
+    return rows, amps, rows_fresh, amps_fresh, np.stack(vhs), np.stack(ats), p
+
+
+class TimedSolver:
+    """A tracking solver that records each window's host-clock ms (ending
+    in ``torch.cuda.synchronize()``) and its last call, so that call can
+    be replayed under the profiler from the same warm state."""
+
+    def __init__(self, solver):
+        self.solver = solver
+        self.cc_frac = solver.cc_frac
+        self.takes_ladder_m = True
+        self.ms = []
+        self.last = None
+
+    def __call__(self, gen, a, b, ladder_m=None):
+        kw = {} if ladder_m is None else {"ladder_m": ladder_m}
+        state = getattr(self.solver, "state", None)
+        self.last = (gen.initial_seed(), a, b, kw,
+                     None if state is None else state["x"])
+        t0 = time.perf_counter()
+        x = self.solver(gen, a, b, **kw)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return x
+
+    def replay(self):
+        seed, a, b, kw, x_prev = self.last
+        if x_prev is not None:
+            self.solver.state["x"] = x_prev
+        return self.solver(torch.Generator().manual_seed(seed), a, b, **kw)
+
+
+def tracked_nmse_db(estimates, vhs):
+    """bench_mobility_r05.py's gauge-invariant tracked NMSE (:132-137):
+    the estimate's best complex scaling against the window's channel."""
+    out = []
+    for x, vh in zip(estimates, vhs):
+        c = np.vdot(x, vh) / max(np.vdot(x, x).real, 1e-30)
+        out.append(10 * np.log10(max(
+            np.linalg.norm(vh - c * x) ** 2 / np.linalg.norm(vh) ** 2,
+            1e-30)))
+    return np.asarray(out)
+
+
+def run_tracker(name, solver, rows, amps, vhs, p, mob):
+    """One warm-up track over two windows, a reset, then the timed track
+    over every window (bench_mobility_r05.py's ``run_tracker``)."""
+    cfg = ArrayConfig(nt=NT, nr=NR)
+    timed = TimedSolver(solver)
+    gen = torch.Generator().manual_seed(0)
+    t0 = time.perf_counter()
+    mobility.track(gen, rows[:2 * p], amps[:2 * p], cfg, mob, solver=timed)
+    warm_s = time.perf_counter() - t0
+    if hasattr(solver, "reset"):
+        solver.reset()
+    timed.ms.clear()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trace = mobility.track(gen, rows, amps, cfg, mob, solver=timed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+
+    if not np.isfinite(trace.estimates).all():
+        raise RuntimeError(f"{name}: non-finite estimate")
+    n_windows = len(vhs)
+    db = tracked_nmse_db(trace.estimates, vhs)
+    budgets = trace.probe_budget
+    out = dict(first=float(np.median(db[1:n_windows // 4])),
+               last=float(np.median(db[-n_windows // 4:])),
+               reset=bool((budgets[2:] == 0).any()),
+               growth=bool((budgets[2:] > 0).any()), counts=counts)
+    print(f"[5 track] {name}: {n_windows / wall:.2f} windows/s | median "
+          f"{np.median(timed.ms):.2f} ms per window (range "
+          f"{min(timed.ms):.2f}-{max(timed.ms):.2f}; warm-up "
+          f"{warm_s:.2f} s) | tracked NMSE median first quarter "
+          f"{out['first']:.2f} dB, last quarter {out['last']:.2f} dB | "
+          f"reset branch {out['reset']}, growth branch {out['growth']} | "
+          f"launches {counts}", flush=True)
+    profile_call(f"[5 profile] {name}, last window", timed.replay)
+    return out
+
+
+def phase5_mobility():
+    """The four trackers of bench_mobility_r05.py (:164-197), then one
+    10-window ``track_simulated`` on a ``brownian_trace``."""
+    rows, amps, rows_fresh, amps_fresh, vhs, _, p = mobility_workload()
+    cfg = ArrayConfig(nt=NT, nr=NR)
+    admm = AdmmConfig(maxiter=500)
+    mob = mobility.MobilityConfig(window_probes=p, max_window=80, admm=admm)
+    mob_ext = mobility.MobilityConfig(window_probes=p, max_window=256,
+                                      admm=admm)
+    runs = {
+        "cold_resolve_ref_semantics": run_tracker(
+            "cold_resolve_ref_semantics",
+            mobility.make_pair_solver(cfg, admm), rows, amps, vhs, p, mob),
+        "warm_anchored_rank1": run_tracker(
+            "warm_anchored_rank1",
+            mobility.make_warm_pair_solver(cfg, admm, use_rank_one=True),
+            rows, amps, vhs, p, mob),
+        "warm_anchored_rank1_freshpairs_window256": run_tracker(
+            "warm_anchored_rank1_freshpairs_window256",
+            mobility.make_warm_pair_solver(cfg, admm, use_rank_one=True),
+            rows_fresh, amps_fresh, vhs, p, mob_ext),
+        "cold_freshpairs_window256": run_tracker(
+            "cold_freshpairs_window256",
+            mobility.make_pair_solver(cfg, admm), rows_fresh, amps_fresh,
+            vhs, p, mob_ext),
+    }
+    for name, run in runs.items():
+        kernel = "pair_matmul" if name.startswith("warm") else \
+            "fused_infer_admm"
+        require_launched(run["counts"], (kernel,), f"the {name} tracker")
+    cold_fresh = runs["cold_freshpairs_window256"]
+    if cold_fresh["last"] > -10.0:
+        raise RuntimeError(f"cold fresh-pair tracker: last-quarter median "
+                           f"{cold_fresh['last']:.2f} dB above -10 dB")
+    cold_sector = runs["cold_resolve_ref_semantics"]
+    if not (cold_sector["reset"] and cold_sector["growth"]):
+        raise RuntimeError("cold sector tracker: the reset and the growth "
+                           "branch did not both fire")
+
+    smob = mobility.SimulatedMobilityConfig()
+    gen = torch.Generator().manual_seed(1)
+    cb, rss, vec_h = mobility.brownian_trace(gen, cfg, smob, n_windows=10)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trace = mobility.track_simulated(gen, cb, rss, cfg, smob,
+                                     solver=mobility.make_pair_solver(
+                                         cfg, smob.admm))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if not np.isfinite(trace.estimates).all():
+        raise RuntimeError("track_simulated: non-finite estimate")
+    db = tracked_nmse_db(trace.estimates, vec_h.cpu().numpy())
+    print(f"[5 track_simulated] brownian_trace {NT}x{NR}, 10 windows of "
+          f"{smob.window_probes} probes, make_pair_solver: "
+          f"{10 / wall:.2f} windows/s | tracked "
+          f"NMSE median {np.median(db):.2f} dB (range {db.min():.2f} to "
+          f"{db.max():.2f}) | budgets {trace.probe_budget.tolist()} | "
+          f"launches {counts}", flush=True)
+    require_launched(counts, ("fused_infer_admm",), "track_simulated")
+    totals = {}
+    for c in [run["counts"] for run in runs.values()] + [counts]:
+        for k, v in c.items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
 
 
 def main():
     smi = phase0_device()
     phase1_build()
     summary = phase2_kernels()
-    launches = phase3_slice()
-    launches["fused_infer_admm"] = phase4_single()
+    launches = {}
+    for counts in (phase3_slice(), phase4_single(), phase5_mobility()):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
     sources = {"fused_prox_dual_t": ("twoace_tpu_torch/csrc/prox_dual.cu",
                                      "twoace_tpu/ops/pallas/kernels.py:121"),
                "fused_zprox_t": ("twoace_tpu_torch/csrc/zprox.cu",
                                  "twoace_tpu/ops/pallas/kernels.py:339"),
                "fused_infer_admm": ("twoace_tpu_torch/csrc/infer_admm.cu",
-                                    "twoace_tpu/ops/pallas/solver_kernel.py:431")}
+                                    "twoace_tpu/ops/pallas/solver_kernel.py:431"),
+               "pair_matmul": ("twoace_tpu_torch/csrc/pair_matmul.cu",
+                               "twoace_tpu/ops/pallas/kernels.py:182")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **summary[name])
                for name, (src, rep) in sources.items()]

@@ -151,9 +151,12 @@ def test_cpu_calls_count_no_launches():
     kernels.fused_zprox_t(tpair(*z), tpair(*v0), 8, 8, LadderArrays(
         lad.ranks.expand(3, -1).contiguous(),
         lad.fracs.expand(3, -1).contiguous()))
+    zt = tpair(*z)
+    kernels.pair_matmul(zt, Pair(zt.re.transpose(1, 2), zt.im.transpose(1, 2)))
     assert kernels.launch_counts() == {"fused_prox_dual_t": 0,
                                        "fused_zprox_t": 0,
-                                       "fused_infer_admm": 0}
+                                       "fused_infer_admm": 0,
+                                       "pair_matmul": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -195,7 +198,8 @@ def test_build_is_keyed_by_the_sources(tmp_path, monkeypatch):
     """nvcc gets the .cu files; the library's name hashes them and the
     headers they include, so a changed header cannot load a stale build."""
     names = sorted(p.name for p in _build.sources())
-    assert names == ["infer_admm.cu", "prox_dual.cu", "zprox.cu"]
+    assert names == ["infer_admm.cu", "pair_matmul.cu", "prox_dual.cu",
+                     "zprox.cu"]
     assert "zprox_core.cuh" in [p.name for p in _build.hashed_files()]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR

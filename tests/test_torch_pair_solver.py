@@ -182,7 +182,7 @@ def test_batch_solver_matches_jax_given_its_splits_and_init(name):
     m_act = a.shape[0]
     lad = profile_ladder_arrays(nt, nr, int(np.floor(m_act * cfg.cc_frac)),
                                 a.shape[1], False)
-    with tps._tf32(False):
+    with tps.no_tf32():
         fp = tps._batch_first_pass(
             tpair(a), torch.tensor(b), trains, tests, lad, nt, nr, cfg, m_act,
             None, tps.Pair(xs.re.transpose(0, 1).contiguous(),
@@ -238,7 +238,7 @@ def test_forced_retry_adds_iterations():
 
 
 def test_pass_caps_at_or_below_warm_iters_raise():
-    """A capped pass that ends inside the warm (TF32) phase would return
+    """A capped pass that ends inside the warm phase would return
     a coarse iterate; the port refuses the configuration."""
     nt, nr, a, x_true, _ = _workload_forced_retry()
     b = np.abs(x_true @ a.T).astype(np.float32)

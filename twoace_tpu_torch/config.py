@@ -82,10 +82,11 @@ class AdmmConfig:
     inferLowRankV4_multi.m:6-15).
 
     ``matmul_precision`` and ``kernel_precision`` are carried for interop
-    with the JAX package's config.  The port runs its float32 phase with
-    TF32 off, which is JAX's "float32"; ``warm_iters`` is the only switch
-    that lets TF32 in (the first ``warm_iters`` trips of each first-pass
-    solve, JAX's single-pass "default").
+    with the JAX package's config.  The port computes every product in
+    float32 with TF32 off, which is JAX's "float32"; ``warm_iters`` keeps
+    its phase switch (the reset of ``converged`` and the best-so-far
+    objective), but its trips are float32 too, not JAX's single-pass
+    "default".
     """
 
     lam: float = 0.0          #: ridge weight lambda
@@ -103,7 +104,7 @@ class AdmmConfig:
     prox: str = "spectral_profile"   #: "spectral_profile" | "nuclear" | "none"
     profile: SpectralProfileConfig = SpectralProfileConfig()
     matmul_precision: str = "float32"
-    #: first-pass trips run with TF32 GEMMs on CUDA (no-op on CPU)
+    #: first-pass trips before the warm-phase reset
     warm_iters: int = 0
     kernel_precision: str = "default"
     #: iteration cap of the first (scale_by_row) pass; None = maxiter

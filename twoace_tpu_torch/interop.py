@@ -15,7 +15,9 @@ from .config import AdmmConfig, SpectralProfileConfig
 from .ops.cplx import LadderArrays, Pair
 
 
-def _device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``; raises for "cuda" where there is no card
+    instead of quietly staying on the CPU."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the card; pass "
@@ -26,7 +28,7 @@ def _device(device) -> torch.device:
 def pair_from_numpy(re, im, device="cuda") -> Pair:
     """A float32 Pair from two numpy arrays (or one complex array as
     ``re`` with ``im=None``) on ``device``."""
-    device = _device(device)
+    device = resolve_device(device)
     if im is None:
         re, im = np.real(re), np.imag(re)
     return Pair(torch.as_tensor(np.asarray(re, np.float32), device=device),
@@ -34,7 +36,7 @@ def pair_from_numpy(re, im, device="cuda") -> Pair:
 
 
 def ladder_from_numpy(ranks, fracs, device="cuda") -> LadderArrays:
-    device = _device(device)
+    device = resolve_device(device)
     return LadderArrays(
         torch.as_tensor(np.asarray(ranks, np.float32), device=device),
         torch.as_tensor(np.asarray(fracs, np.float32), device=device))

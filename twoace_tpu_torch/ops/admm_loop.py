@@ -3,15 +3,15 @@
 One body serves two callers (ref: inferLowRankV4_multi.m:281-386):
 
 - the per-op route of :func:`.pair_solver.infer_admm_pair`, which hands
-  it the CUDA kernels K1 (magnitude prox + M-dual) and K2 (warm Z-prox),
-  or the nuclear prox;
+  it the CUDA kernels K4 (pair GEMM), K1 (magnitude prox + M-dual) and
+  K2 (warm Z-prox), or the nuclear prox;
 - the plain version of the loop kernel K3
-  (:func:`.kernels.infer_admm.infer_admm_plain`), which hands it K1's and
-  K2's plain versions.
+  (:func:`.kernels.infer_admm.infer_admm_plain`), which hands it K4's,
+  K1's and K2's plain versions.
 
 Lanes are laid out (G, P, ...): G groups share one codebook block and its
 U, P lanes ride each group, so each pair GEMM folds (P, r) into the rows
-of one batched ``torch.matmul`` per group.  Each lane carries a
+of one batched product per group.  Each lane carries a
 ``converged`` mask; a finished lane's state is frozen with
 ``torch.where`` and its trip count ``it`` stops, so ``it`` keeps JAX's
 meaning (the trips each lane ran).  Whether any lane is still active is
@@ -21,7 +21,6 @@ change nothing.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Callable, NamedTuple, Optional
 
@@ -31,22 +30,6 @@ from .cplx import Pair, add, conj, matmul, sub, transpose
 
 #: trips between host reads of the lanes' converged masks
 CHECK_EVERY = 8
-
-
-@contextlib.contextmanager
-def tf32(enabled: bool):
-    """Set ``torch.backends.cuda.matmul.allow_tf32`` for the block.
-
-    False is JAX's "float32" matmul precision; True is the port's
-    stand-in for the single-pass "default" of the ``warm_iters`` phase.
-    On the CPU the flag changes nothing, as JAX's precision does not.
-    """
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = enabled
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 # ---------------------------------------------------------------------------
@@ -60,12 +43,12 @@ def norm(p: Pair):
     return torch.sqrt(fro2(p))
 
 
-def gemm(x: Pair, mat: Pair) -> Pair:
+def gemm(x: Pair, mat: Pair, pair_gemm: Callable = matmul) -> Pair:
     """(G, P, r, k) @ (G, k, l) -> (G, P, r, l), folding (P, r) into the
-    rows of one batched Karatsuba product per group."""
+    rows of one batched Karatsuba product ``pair_gemm`` per group."""
     g, p, r, k = x.re.shape
-    out = matmul(Pair(x.re.reshape(g, p * r, k), x.im.reshape(g, p * r, k)),
-                 mat)
+    out = pair_gemm(Pair(x.re.reshape(g, p * r, k),
+                         x.im.reshape(g, p * r, k)), mat)
     return Pair(out.re.view(g, p, r, -1), out.im.view(g, p, r, -1))
 
 
@@ -103,16 +86,23 @@ class _State(NamedTuple):
     converged: torch.Tensor
 
 
+#: ``pair_gemm(a, b) -> a @ b`` on contiguous (G, M, K), (G, K, N) pairs
+PairGemm = Callable
 #: ``prox_dual(ax, b, m_dual, mu, per_entry) -> (y, m_new)`` on lanes
 ProxDual = Callable
 #: ``z_prox(z_in, v_basis, mu) -> (z_new, v_new)`` on lanes
 ZProx = Callable
 
 
+def _contiguous(p: Pair) -> Pair:
+    return Pair(p.re.contiguous(), p.im.contiguous())
+
+
 def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
-              mu0, *, scale_by_row: bool, prox_dual: ProxDual, z_prox: ZProx,
-              rho: float, tol_rel: float, tol_abs: float, maxiter: int,
-              warm_iters: int = 0, anchor: Optional[Pair] = None):
+              mu0, *, scale_by_row: bool, pair_gemm: PairGemm,
+              prox_dual: ProxDual, z_prox: ZProx, rho: float, tol_rel: float,
+              tol_abs: float, maxiter: int, warm_iters: int = 0,
+              anchor: Optional[Pair] = None):
     """The loop of every lane from its prepared state.
 
     ``a``: (G, m, n); ``b``: (G, P, m); ``u_mat``: (G, n, n), the inverse
@@ -124,10 +114,14 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
 
     Each trip: X-update against conj(U), magnitude prox with the M-dual
     update, Z-prox, N-dual update, best-so-far tracking, the three
-    residual tests and the mu update.  With ``warm_iters > 0`` the first
-    ``min(warm_iters, maxiter)`` trips run with TF32 GEMMs, then
+    residual tests and the mu update.  The trip's three products (A^H Y,
+    the X-update, A X) go through ``pair_gemm``, whose B operands
+    (A^T, conj(A), conj(U)) are made contiguous once per solve.  With
+    ``warm_iters > 0``, after the first ``min(warm_iters, maxiter)`` trips
     ``converged`` and the best-so-far objective are reset for every lane
-    and the float32 tail continues from the carried state (ref :571-578).
+    and the tail continues from the carried state (ref :571-578); every
+    trip runs in float32 (JAX's single-pass "default" for the warm trips
+    has no counterpart yet).
 
     Returns ``(opt_x, opt_y, converged, it)``: opt_x (G, P, r, n) with
     ``scale_by_row``, else the best column (G, P, 1, n); ``it`` (G, P).
@@ -135,17 +129,17 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
     g_, p_, r, m = y.re.shape
     n = z.re.shape[-1]
     n_lanes = g_ * p_
-    a_t = transpose(a)                                          # (G, n, m)
-    a_conj = conj(a)                                            # (G, m, n)
-    u_conj = conj(u_mat)                                        # U^T
+    a_t = _contiguous(transpose(a))                             # (G, n, m)
+    a_conj = _contiguous(conj(a))                               # (G, m, n)
+    u_conj = _contiguous(conj(u_mat))                           # U^T
     b_lanes = b.reshape(n_lanes, m)
     dev, f32 = y.re.device, torch.float32
 
     def a_mul(x):
-        return gemm(x, a_t)
+        return gemm(x, a_t, pair_gemm)
 
     def ah_mul(yy):
-        return gemm(yy, a_conj)
+        return gemm(yy, a_conj, pair_gemm)
 
     def zeros(*shape):
         return Pair(torch.zeros(shape, dtype=f32, device=dev),
@@ -172,7 +166,7 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
                                   c.z.im - c.n_dual.im * inv4))
         if anchor is not None:
             rhs = add(rhs, anchor)
-        x = gemm(rhs, u_conj)
+        x = gemm(rhs, u_conj, pair_gemm)
         ax = a_mul(x)
         # Y-update fused with the M-dual update (ref :511-533, :336-337)
         yn, m_dual = prox_dual(lanes(ax), b_lanes, lanes(c.m_dual),
@@ -242,11 +236,11 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
         return c
 
     if warm_iters > 0:
-        with tf32(True):
-            state = run(state, min(warm_iters, maxiter))
-        # coarse residuals must not certify convergence, and the coarse
-        # best-so-far objective must not block the float32 tail's better
-        # states: reset both at the phase switch (ref :571-578)
+        state = run(state, min(warm_iters, maxiter))
+        # the warm phase's residuals must not certify convergence, and its
+        # best-so-far objective must not block the tail's better states:
+        # reset both at the phase switch, as JAX does after its coarse
+        # single-pass trips (ref :571-578)
         state = state._replace(converged=torch.zeros_like(state.converged),
                                opt_obj=torch.full_like(state.opt_obj,
                                                        math.inf))

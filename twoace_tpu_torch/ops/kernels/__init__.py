@@ -5,7 +5,9 @@ PyTorch version.  Port of ``twoace_tpu.ops.pallas.kernels``:
 - :func:`fused_zprox_t` (K2, ``csrc/zprox.cu``), which also takes the
   place of the lane-packed ``fused_zprox_batch``;
 - :func:`fused_infer_admm` (K3, ``csrc/infer_admm.cu``), the whole
-  InferADMM loop, port of ``twoace_tpu.ops.pallas.solver_kernel``.
+  InferADMM loop, port of ``twoace_tpu.ops.pallas.solver_kernel``;
+- :func:`pair_matmul` (K4, ``csrc/pair_matmul.cu``), the batched pair
+  GEMM of the per-op loop.
 
 Each wrapper counts its launches in a plain integer attribute
 ``.launches``; a CPU tensor takes the plain version and counts nothing.
@@ -13,9 +15,10 @@ Each wrapper counts its launches in a plain integer attribute
 
 from .prox_dual import fused_prox_dual_t, prox_dual_t_plain  # noqa: F401
 from .zprox import fused_zprox_t, zprox_t_plain  # noqa: F401
+from .pair_matmul import pair_matmul, pair_matmul_plain  # noqa: F401
 from .infer_admm import fused_infer_admm, infer_admm_plain  # noqa: F401
 
-KERNELS = (fused_prox_dual_t, fused_zprox_t, fused_infer_admm)
+KERNELS = (fused_prox_dual_t, fused_zprox_t, fused_infer_admm, pair_matmul)
 
 
 def reset_launch_counts() -> None:

@@ -17,12 +17,11 @@ over every inner solve whose result was used.
 Routing of an inner solve on CUDA tensors (:func:`infer_admm_pair`):
 
 - on the single-recovery path, a spectral-profile solve that is not
-  anchored and has no warm (TF32) trips runs its whole loop in the CUDA
-  kernel K3 (:func:`.kernels.fused_infer_admm`), as JAX's megakernel
-  route does;
+  anchored and has no warm trips runs its whole loop in the CUDA kernel
+  K3 (:func:`.kernels.fused_infer_admm`), as JAX's megakernel route does;
 - every other solve (anchored, ``warm_iters > 0``, nuclear, and every
   solve of the batch solver) runs the per-op loop of :mod:`.admm_loop`
-  with torch GEMMs and the kernels K1 (magnitude prox + M-dual) and K2
+  with the kernels K4 (pair GEMM), K1 (magnitude prox + M-dual) and K2
   (warm Z-prox), or the nuclear prox in plain torch.
 
 No solve on a CUDA tensor falls back to a plain version.  The setup around
@@ -33,6 +32,7 @@ eigensolver existed because the TPU lacked ``eigh``.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional
 
@@ -41,11 +41,10 @@ import torch
 
 from ..config import AdmmConfig
 from .admm_loop import admm_loop, gemm, groups, lanes, norm, where
-from .admm_loop import tf32 as _tf32
 from .cplx import (LadderArrays, Pair, from_complex, magnitude_prox_cols_elem,
                    scale, to_complex, transpose)
 from .kernels import (fused_infer_admm, fused_prox_dual_t, fused_zprox_t,
-                      zprox_t_plain)
+                      pair_matmul, zprox_t_plain)
 from .prox import profile_ladder_arrays
 
 __all__ = [
@@ -56,6 +55,23 @@ __all__ = [
 ]
 
 PROX_KINDS = ("spectral_profile", "nuclear")
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Turn ``torch.backends.cuda.matmul.allow_tf32`` off for the block and
+    restore the caller's flag after it.
+
+    Off is JAX's "float32" matmul precision, which the solvers' setup
+    products (U, spectral init, quality) run under.  On the CPU the flag
+    changes nothing, as JAX's precision does not.
+    """
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 class PairAdmmResult(NamedTuple):
@@ -247,11 +263,10 @@ def infer_admm_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool,
     solve must not be handed ``u_mat``.
 
     On CUDA a spectral-profile solve without anchor and warm trips runs
-    in the loop kernel K3, whose products are float32 on the CUDA cores,
-    unless ``fused_loop`` is False (the batch solver's routing, kept on
-    K1/K2 until a measurement decides it); other solves run the per-op
-    loop (torch GEMMs, K1, K2), whose first ``min(warm_iters, maxiter)``
-    trips use TF32 GEMMs.
+    in the loop kernel K3, unless ``fused_loop`` is False (the batch
+    solver's routing, kept on the per-op loop until a measurement decides
+    it); other solves run the per-op loop (K4, K1, K2).  Both compute
+    every product in float32 on the CUDA cores.
 
     Returns ``(opt_x, opt_y, converged, it)``: opt_x (G, P, r, n) with
     ``scale_by_row``, else the best column (G, P, 1, n); ``it`` (G, P)
@@ -296,7 +311,7 @@ def infer_admm_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool,
         def z_prox(zz, vv, mu_l):
             return _nuclear_prox_t(zz, 1.0 / mu_l), vv
 
-    return admm_loop(a, b, u_mat, y, z, v_basis, mu,
+    return admm_loop(a, b, u_mat, y, z, v_basis, mu, pair_gemm=pair_matmul,
                      prox_dual=fused_prox_dual_t, z_prox=z_prox,
                      warm_iters=warm_iters,
                      anchor=scale(anchor, anchor_weight) if anchored else None,
@@ -318,8 +333,8 @@ def _check_modes(prox_kind: str, eig_mode: str) -> None:
 
 def _pass_bounds(cfg: AdmmConfig):
     """Trip bounds of the two passes (ref :649-658).  A capped pass at or
-    below ``warm_iters`` would run only coarse trips and return a coarse
-    iterate, so it is refused."""
+    below ``warm_iters`` would run only warm-phase trips (coarse ones in
+    JAX) and return a coarse iterate, so it is refused."""
     b1 = min(cfg.stage1_maxiter, cfg.maxiter) \
         if cfg.stage1_maxiter is not None else cfg.maxiter
     b2 = min(cfg.stage2_maxiter, cfg.maxiter) \
@@ -327,7 +342,7 @@ def _pass_bounds(cfg: AdmmConfig):
     if cfg.warm_iters > 0 and min(b1, b2) <= cfg.warm_iters:
         raise ValueError(
             f"pass caps ({b1}, {b2}) must exceed warm_iters="
-            f"{cfg.warm_iters}: a pass that ends inside the TF32 warm phase "
+            f"{cfg.warm_iters}: a pass that ends inside the warm phase "
             "returns a coarse iterate")
     return b1, b2
 
@@ -534,8 +549,8 @@ def solve_lowrank_multi_pair_batch(generator: Optional[torch.Generator],
     (R, B) quality gate): the first pass of every (restart, instance),
     the rank-1 retry of exactly the poor pairs, and the refine.  The
     nuclear prox has no retry (ref: JAX ``pair_solver.py:909``).  Runs with
-    ``torch.backends.cuda.matmul.allow_tf32`` False (JAX's "float32")
-    except the ``cfg.warm_iters`` trips of each first-pass solve.
+    ``torch.backends.cuda.matmul.allow_tf32`` False (JAX's "float32"); its
+    loop's products run in K4, float32 on the CUDA cores.
 
     ``generator`` draws the train/test splits and the spectral-init start
     blocks (on the CPU).  Test-only: ``splits`` = (trains (R, k), tests
@@ -572,7 +587,7 @@ def solve_lowrank_multi_pair_batch(generator: Optional[torch.Generator],
     lm_tr = int(math.floor(m_act * cfg.cc_frac))
     ladder = _ladders(nt, nr, n, cfg, prox_kind, dev)
 
-    with _tf32(False):
+    with no_tf32():
         fp = _batch_first_pass(a, b_batch, trains, tests,
                                ladder(lm_tr, False), nt, nr, cfg, m_act,
                                generator, xs, prox_kind)
@@ -643,7 +658,7 @@ def solve_lowrank_multi_pair(generator: Optional[torch.Generator], a: Pair,
     b_tr, b_te = b_n[trains][:, None], b_n[tests][:, None]      # (R, 1, k)
     u_tr = precompute_u_pair(a_tr)
 
-    with _tf32(False):
+    with no_tf32():
         if xs is None:
             xs = spectral_initialize_pair(a_tr, b_tr, r, generator)
         else:
@@ -700,10 +715,10 @@ def refine_lowrank_pair(a: Pair, b, x0: Pair, nt: int, nr: int,
     ``anchor_weight > 0`` adds ``anchor_weight * ||x - x0||^2`` to the
     X-subproblem, so directions the current rows do not measure stay at
     the previous estimate.  The solve runs ``cfg.maxiter`` trips at most,
-    the first ``cfg.warm_iters`` of them with TF32 GEMMs on CUDA.
+    with the warm-phase reset after the first ``cfg.warm_iters``.
     ``quality`` is the fit 1 - ||(|A x|) - b|| / ||b|| over all the data.
-    On CUDA an anchored or warm refine runs the per-op loop (K1, K2), a
-    plain one the loop kernel K3.
+    On CUDA an anchored or warm refine runs the per-op loop (K4, K1, K2),
+    a plain one the loop kernel K3.
     """
     _check_modes(prox_kind, "perturb")
     m, n = a.re.shape
@@ -715,7 +730,7 @@ def refine_lowrank_pair(a: Pair, b, x0: Pair, nt: int, nr: int,
                                                               use_rank_one)
     a_full = Pair(a_n.re[None], a_n.im[None])
     b_full = b_n[None, None]
-    with _tf32(False):
+    with no_tf32():
         x, _, converged, it = infer_admm_pair(
             a_full, b_full, x0n, scale_by_row=True, nt=nt, nr=nr,
             ladder=ladder, prox_kind=prox_kind, mu0=cfg.mu0, rho=cfg.rho,
