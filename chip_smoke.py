@@ -33,10 +33,12 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 
 Phase 2 also holds K4 (the per-op loop's pair GEMM) against its plain
 version at the batch solver's, the anchored refine's (one row: the warm
-trackers' m 80 and 256, phase 4's m 1024) and a ragged shape.  Each
-path (the batch solve, the single solves, the refine, each tracker) is
-driven with the launch counts set to 0 just before it and read just
-after, and fails if a kernel it runs was never launched.
+trackers' m 80 and 256, phase 4's m 1024) and a ragged shape, and K5 at
+the campaign's, the refine's and a tracker window's shapes, a ragged m
+and complex128.  Each path (the batch solve, the single solves, the
+refine, each tracker, each part of the campaign) is driven with the
+launch counts set to 0 just before it and read just after, and fails if
+a kernel it runs was never launched.
 
 The last three lines are a JSON summary of the kernels, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
@@ -54,19 +56,28 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from twoace_tpu_torch import interop  # noqa: E402
-from twoace_tpu_torch.config import AdmmConfig, ArrayConfig  # noqa: E402
+from twoace_tpu_torch.config import (  # noqa: E402
+    AdmmConfig, ArrayConfig, ChannelConfig, MethodFlags, probe_budget_grid)
+from twoace_tpu_torch.models.channel import generate_channel  # noqa: E402
+from twoace_tpu_torch.ops import admm, dispatch  # noqa: E402
 from twoace_tpu_torch.ops.cplx import LadderArrays, Pair  # noqa: E402
 from twoace_tpu_torch.ops import pair_solver  # noqa: E402
 from twoace_tpu_torch.ops.kernels import (  # noqa: E402
-    _build, fused_infer_admm, fused_prox_dual_t, fused_zprox_t,
-    infer_admm_plain, launch_counts, pair_matmul, pair_matmul_plain,
-    prox_dual_t_plain, reset_launch_counts, zprox_t_plain)
+    _build, fused_infer_admm, fused_prox_dual, fused_prox_dual_t,
+    fused_zprox_t, infer_admm_plain, launch_counts, pair_matmul,
+    pair_matmul_plain, prox_dual_rows_plain, prox_dual_t_plain,
+    reset_launch_counts, zprox_t_plain)
 from twoace_tpu_torch.ops.pair_solver import (  # noqa: E402
     no_tf32, refine_lowrank_pair, solve_lowrank_multi_pair,
     solve_lowrank_multi_pair_batch)
 from twoace_tpu_torch.ops.prox import profile_ladder_arrays  # noqa: E402
-from twoace_tpu_torch.pipeline import mobility  # noqa: E402
+from twoace_tpu_torch.pipeline import mobility, recovery  # noqa: E402
+from twoace_tpu_torch.sensing.codebooks import (  # noqa: E402
+    kron_probe_rows, random_codebook)
+from twoace_tpu_torch.sensing.provider import SyntheticProvider  # noqa: E402
 from twoace_tpu_torch.utils.metrics import nmse_h_projection  # noqa: E402
+from twoace_tpu_torch.utils.rng import fold_in  # noqa: E402
+from twoace_tpu_torch.utils.units import dbm_to_amplitude  # noqa: E402
 
 NT = NR = 16
 N = NT * NR
@@ -104,6 +115,26 @@ K4_SHAPES = [(RESTARTS, SOLVE_BATCH * R, M_TRAIN, N),
              *dict.fromkeys((1, 1, k, n) for m in (80, 256, M)
                             for k, n in ((m, N), (N, N), (N, m))),
              (2, 70, 97, 51)]
+
+#: K5 against its plain version: max |difference| over max |plain|.  The
+#: two round every step alike except the order of the row sum.
+K5_RTOL = {torch.complex64: 2e-6, torch.complex128: 1e-14}
+#: K5's shapes (m, r, dtype, per_entry): the campaign's pass 1 and pass 2
+#: at M 1024 (m = floor(0.95 M), r 20), the refine (m = M, r 1), a tracker
+#: window (80, 20), a ragged m, and complex128; each with 9 padded
+#: (b = 0) rows and one all-zero row
+K5_SHAPES = [(M_TRAIN, R, torch.complex64, False),
+             (M_TRAIN, R, torch.complex64, True),
+             (M, 1, torch.complex64, False),
+             (80, R, torch.complex64, False),
+             (97, 3, torch.complex64, True),
+             (M_TRAIN, R, torch.complex128, False)]
+#: phase 6: the shipped random_probe_cb_16x16.mat's dimensions
+CAMPAIGN_ROUNDS, CAMPAIGN_SECTORS = 64, 62
+CAMPAIGN_SEED = 6
+#: the channel's scale, as in the testbed sample (about -46 dBm per probe)
+CHANNEL_SCALE = 3e-4
+TRACK_WINDOWS = 10
 
 #: H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 flop/s
 #: outside the tensor cores
@@ -252,7 +283,46 @@ def phase2_kernels():
         **bound(nbytes(z, v0, lad, zn, vn), k2_flops), library_ms=None)
     summary["fused_infer_admm"] = phase2_k3()
     summary["pair_matmul"] = phase2_k4()
+    summary["fused_prox_dual"] = phase2_k5()
     return summary
+
+
+def phase2_k5():
+    """K5 against its plain version at K5_SHAPES, with the times of both
+    and the bound: each of ax, M, b, mu read once and y, M' written once,
+    about 20 flops per complex entry."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for m, r, dtype, per_entry in K5_SHAPES:
+        rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+        ax, md = (torch.randn(m, r, dtype=dtype, generator=gen, device="cuda")
+                  for _ in range(2))
+        b = torch.rand(m, dtype=rdt, generator=gen, device="cuda") + 0.5
+        b[m - 9:] = 0.0                       # padded (inactive) rows
+        ax[3] = 0.0                           # an all-zero row
+        md[3] = 0.0
+        mu = torch.tensor(0.41, dtype=rdt, device="cuda")
+        got = fused_prox_dual(ax, b, md, mu, per_entry)
+        want = prox_dual_rows_plain(ax, b, md, mu, per_entry)
+        torch.cuda.synchronize()
+        rel = max(float((g - w).abs().max() / w.abs().max())
+                  for g, w in zip(got, want))
+        label = f"({m}, {r}) {str(dtype)[6:]} per_entry {per_entry}"
+        if not rel <= K5_RTOL[dtype]:
+            raise RuntimeError(f"K5 disagrees with its plain version at "
+                               f"{label}: {rel:.3e} > {K5_RTOL[dtype]}")
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        ms = cuda_ms(lambda: fused_prox_dual(ax, b, md, mu, per_entry))
+        plain = cuda_ms(lambda: prox_dual_rows_plain(ax, b, md, mu,
+                                                     per_entry))
+        bnd = bound(nbytes(ax, md, b, mu, *got), 20 * m * r)
+        print(f"[2 K5 fused_prox_dual] {label}: max rel err {rel:.3e} (tol "
+              f"{K5_RTOL[dtype]}), max abs err {err:.3e} | kernel {ms:.4f} "
+              f"ms | plain {plain:.4f} ms | bound {bnd['bound_ms']:.6f} ms "
+              f"({bnd['bound_by']})", flush=True)
+        out[(m, r, dtype, per_entry)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, **bnd, library_ms=None)
+    return out[K5_SHAPES[0]]
 
 
 def k3_flops(it, r, m, n):
@@ -488,17 +558,21 @@ def require_launched(counts, names, path):
 
 def profile_call(label, fn):
     """One call of ``fn`` under torch.profiler: device time by kernel
-    against the call's wall time."""
+    against the call's wall time.  The device's own events only: a CPU
+    op's device time would repeat its kernels' (the profiler's own "Self
+    CUDA time total" counts kernels alone), and recording the host's ops
+    of a many-trip solve costs minutes of post-processing."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages()
-              if getattr(e, "self_device_time_total", 0) > 0]
+              if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation and e.self_device_time_total > 0]
     total = sum(e.self_device_time_total for e in events) / 1e3
     if total <= 0:
         print(f"{label} device time not measured (the profiler saw no "
@@ -745,7 +819,8 @@ def run_tracker(name, solver, rows, amps, vhs, p, mob):
     out = dict(first=float(np.median(db[1:n_windows // 4])),
                last=float(np.median(db[-n_windows // 4:])),
                reset=bool((budgets[2:] == 0).any()),
-               growth=bool((budgets[2:] > 0).any()), counts=counts)
+               growth=bool((budgets[2:] > 0).any()), counts=counts, db=db,
+               wps=n_windows / wall, ms=float(np.median(timed.ms)))
     print(f"[5 track] {name}: {n_windows / wall:.2f} windows/s | median "
           f"{np.median(timed.ms):.2f} ms per window (range "
           f"{min(timed.ms):.2f}-{max(timed.ms):.2f}; warm-up "
@@ -821,17 +896,212 @@ def phase5_mobility():
     for c in [run["counts"] for run in runs.values()] + [counts]:
         for k, v in c.items():
             totals[k] = totals.get(k, 0) + v
+    return totals, cold_sector
+
+
+def campaign_workload(device="cuda"):
+    """Phase 6's testbed inputs, as ``pipeline/testbed.py``
+    (``run_random_campaign``) builds its random campaign: a 16x16 2-bit
+    Tx codebook of 64 rounds x 62 sectors and a 64-entry Rx codebook,
+    kron'd sector-major (``interleave=True``) into 3968 probe rows; a
+    3-path ``generate_channel`` scaled by CHANNEL_SCALE; its RSS in dBm
+    from ``SyntheticProvider`` at its defaults (0.5 dB jitter, 10 dumps,
+    RSSI quantization) and without jitter or quantization.  Every draw is
+    made on the CPU from CAMPAIGN_SEED, so ``device="cpu"`` gives the
+    same inputs.  Returns ``(cb, x_true, rss_dbm, rss_dbm_noiseless)``."""
+    cfg = ArrayConfig(nt=NT, nr=NR)
+    n_paths = recovery.CampaignConfig().n_paths
+    g = torch.Generator().manual_seed(CAMPAIGN_SEED)
+    rounds, sectors = CAMPAIGN_ROUNDS, CAMPAIGN_SECTORS
+    tx = random_codebook(fold_in(g, 0), rounds * sectors, NT, device=device)
+    rx = random_codebook(fold_in(g, 1), rounds, NR, device=device)
+    cb = kron_probe_rows(tx.rows().reshape(rounds, sectors, NT), rx.rows(),
+                         interleave=True)
+    ch = generate_channel(fold_in(g, 2), cfg, ChannelConfig(n_paths=n_paths),
+                          device=device)
+    x_true = ch.vec_h[0] * CHANNEL_SCALE
+    rss = SyntheticProvider(vec_h=x_true, generator=fold_in(g, 3)).measure(cb)
+    clean = SyntheticProvider(vec_h=x_true, noise_dbm_std=0.0,
+                              quantize_rssi=False).measure(cb)
+    return cb, x_true, rss, clean
+
+
+def proj_nmse_db(x_est, x_true):
+    """Projection-invariant NMSE in dB of complex (n,) estimates."""
+    err = nmse_h_projection(torch.as_tensor(np.asarray(x_est)),
+                            torch.as_tensor(np.asarray(x_true)))
+    return float(10 * torch.log10(torch.clamp(err, min=1e-30)))
+
+
+def campaign_estimate(out, i):
+    return out.h_amp[i, 0] * np.exp(1j * out.h_angle[i, 0])
+
+
+class SolveProbe:
+    """Records each ``dispatch.admm_v2`` solve of a campaign while it is
+    entered: host-clock seconds (ending in ``torch.cuda.synchronize()``),
+    the trips ``infer_admm`` ran, K5's launches and the quality."""
+
+    def __enter__(self):
+        self.calls = []
+        self.inner = dispatch.admm_v2
+        dispatch.admm_v2 = self
+        return self
+
+    def __exit__(self, *exc):
+        dispatch.admm_v2 = self.inner
+
+    def __call__(self, *args, **kwargs):
+        trips, k5 = admm.infer_admm.trips, fused_prox_dual.launches
+        t0 = time.perf_counter()
+        res = self.inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.calls.append(dict(
+            s=time.perf_counter() - t0, trips=admm.infer_admm.trips - trips,
+            k5=fused_prox_dual.launches - k5, quality=float(res.quality)))
+        return res
+
+
+def run_campaign(label, fn):
+    """``fn()`` with the launch counts and trips set to 0 just before it and
+    read just after, under a SolveProbe; fails unless K5 was launched."""
+    reset_launch_counts()
+    admm.infer_admm.trips = 0
+    with SolveProbe() as probe:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    require_launched(counts, ("fused_prox_dual",), label)
+    return out, probe.calls, wall, counts
+
+
+def phase6_campaign(cold_k3):
+    """The testbed recovery campaign on the card (see campaign_workload),
+    at the default CampaignConfig (16x16, AdmmConfig maxiter 500, three
+    restarts)."""
+    cb, x_true, rss, clean = campaign_workload()
+    x_np = x_true.cpu().numpy()
+    cc = recovery.CampaignConfig(array=ArrayConfig(nt=NT, nr=NR))
+    grid = probe_budget_grid(NT, NR)
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    out, calls, wall, counts = run_campaign(
+        "recover_a2only", lambda: recovery.recover_a2only(cb, rss, cc=cc))
+    add(counts)
+    if len(calls) != len(grid):
+        raise RuntimeError(f"recover_a2only ran {len(calls)} solves for "
+                           f"{len(grid)} grid points")
+    for i, (m_cur, call) in enumerate(zip(grid, calls)):
+        db = proj_nmse_db(campaign_estimate(out, i), x_np)
+        if not np.isfinite(out.h_amp[i]).all() or call["k5"] <= 0:
+            raise RuntimeError(f"recover_a2only M {m_cur}: non-finite "
+                               f"estimate or no K5 launch")
+        print(f"[6 a2only] M {m_cur}: {call['s']:.3f} s | trips "
+              f"{call['trips']} | K5 launches {call['k5']} | quality "
+              f"{call['quality']:.6f} | NMSE {db:.2f} dB", flush=True)
+    print(f"[6 a2only] recover_a2only {NT}x{NR}, {CAMPAIGN_ROUNDS * CAMPAIGN_SECTORS}"
+          f" probe rows, grid {grid}: {wall:.2f} s | trips "
+          f"{admm.infer_admm.trips} | launches {counts}", flush=True)
+
+    out, calls, wall, counts = run_campaign(
+        "the noiseless campaign", lambda: recovery.recover_campaign(
+            cb, clean, MethodFlags(), cc, m_grid=(M,)))
+    add(counts)
+    db = proj_nmse_db(campaign_estimate(out, 0), x_np)
+    q = calls[0]["quality"]
+    print(f"[6 noiseless] recover_a2only M {M}, no jitter or quantization: "
+          f"{wall:.3f} s | trips {calls[0]['trips']} | K5 launches "
+          f"{calls[0]['k5']} | quality {q:.6f} | NMSE {db:.2f} dB", flush=True)
+    if not (db <= -60.0 and q >= 0.98):
+        raise RuntimeError(f"noiseless M {M}: NMSE {db:.2f} dB, quality "
+                           f"{q:.4f} (need <= -60 dB, >= 0.98)")
+
+    out, calls, wall, counts = run_campaign(
+        "recover_a2nuclear", lambda: recovery.recover_campaign(
+            cb, rss, MethodFlags(), cc, m_grid=(M,), nuclear=True))
+    add(counts)
+    print(f"[6 a2nuclear] recover_a2nuclear M {M}: {wall:.3f} s | trips "
+          f"{calls[0]['trips']} | K5 launches {calls[0]['k5']} | quality "
+          f"{calls[0]['quality']:.6f} | NMSE "
+          f"{proj_nmse_db(campaign_estimate(out, 0), x_np):.2f} dB",
+          flush=True)
+
+    (out, quals), _, wall, counts = run_campaign(
+        "recover_warm_sweep",
+        lambda: recovery.recover_warm_sweep(cb, rss, cc=cc))
+    add(counts)
+    dbs = [round(proj_nmse_db(campaign_estimate(out, i), x_np), 2)
+           for i in range(len(grid))]
+    print(f"[6 warm sweep] recover_warm_sweep over {grid}: {wall:.2f} s | "
+          f"trips {admm.infer_admm.trips} | NMSE dB {dbs} | quality "
+          f"{[round(q, 6) for q in quals]} | launches {counts}", flush=True)
+
+    rows, amps, _, _, vhs, _, p = mobility_workload()
+    rows, amps, vhs = (rows[:TRACK_WINDOWS * p], amps[:TRACK_WINDOWS * p],
+                       vhs[:TRACK_WINDOWS])
+    mob = mobility.MobilityConfig(window_probes=p, max_window=80,
+                                  admm=AdmmConfig(maxiter=500))
+    trace, _, wall, counts = run_campaign(
+        "track(solver=None)", lambda: mobility.track(
+            torch.Generator().manual_seed(0), rows, amps,
+            ArrayConfig(nt=NT, nr=NR), mob))
+    add(counts)
+    if not np.isfinite(trace.estimates).all():
+        raise RuntimeError("track(solver=None): non-finite estimate")
+    db = tracked_nmse_db(trace.estimates, vhs)
+    print(f"[6 track] track(solver=None), the complex A2 solver, on phase "
+          f"5's sector stream, {TRACK_WINDOWS} windows of {p} probes, "
+          f"max_window 80: {TRACK_WINDOWS / wall:.2f} windows/s, "
+          f"{1e3 * wall / TRACK_WINDOWS:.1f} ms per window | tracked NMSE "
+          f"median {np.median(db[1:]):.2f} dB (windows 1-9) | budgets "
+          f"{trace.probe_budget.tolist()} | launches {counts} || phase 5's "
+          f"K3 cold tracker: {cold_k3['wps']:.2f} windows/s, median "
+          f"{cold_k3['ms']:.1f} ms per window, tracked NMSE median "
+          f"{np.median(cold_k3['db'][1:TRACK_WINDOWS]):.2f} dB (windows "
+          f"1-9)", flush=True)
+
+    a = cb[:M]
+    b = dbm_to_amplitude(torch.as_tensor(rss[:M], device=a.device),
+                         cc.rss_fct)
+    _, _, _, counts = run_campaign("the profiled solve", lambda: profile_call(
+        f"[6 profile] solve_lowrank_multi M {M}",
+        lambda: admm.solve_lowrank_multi(torch.Generator().manual_seed(0), a,
+                                         b, NT, NR, cc.admm)))
+    add(counts)
     return totals
 
 
 def main():
+    t0 = time.perf_counter()
+
+    def done(phase):
+        print(f"[time] phase {phase} done, {time.perf_counter() - t0:.1f} s "
+              "since the start", flush=True)
+
     smi = phase0_device()
     phase1_build()
     summary = phase2_kernels()
+    done(2)
     launches = {}
-    for counts in (phase3_slice(), phase4_single(), phase5_mobility()):
+
+    def add(counts):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
+
+    add(phase3_slice())
+    add(phase4_single())
+    done(4)
+    counts5, cold_k3 = phase5_mobility()
+    add(counts5)
+    done(5)
+    add(phase6_campaign(cold_k3))
+    done(6)
     sources = {"fused_prox_dual_t": ("twoace_tpu_torch/csrc/prox_dual.cu",
                                      "twoace_tpu/ops/pallas/kernels.py:121"),
                "fused_zprox_t": ("twoace_tpu_torch/csrc/zprox.cu",
@@ -839,7 +1109,9 @@ def main():
                "fused_infer_admm": ("twoace_tpu_torch/csrc/infer_admm.cu",
                                     "twoace_tpu/ops/pallas/solver_kernel.py:431"),
                "pair_matmul": ("twoace_tpu_torch/csrc/pair_matmul.cu",
-                               "twoace_tpu/ops/pallas/kernels.py:182")}
+                               "twoace_tpu/ops/pallas/kernels.py:182"),
+               "fused_prox_dual": ("twoace_tpu_torch/csrc/prox_dual_rows.cu",
+                                   "twoace_tpu/ops/pallas/kernels.py:55")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **summary[name])
                for name, (src, rep) in sources.items()]

@@ -16,7 +16,7 @@ from twoace_tpu_torch import config as tcfg
 from twoace_tpu_torch import interop
 
 CLASSES = ["AdmmConfig", "SpectralProfileConfig", "ArrayConfig",
-           "ChannelConfig"]
+           "ChannelConfig", "MethodFlags"]
 
 
 @pytest.mark.parametrize("name", CLASSES)
@@ -35,6 +35,20 @@ def test_array_config_properties_match_jax():
         assert t.k_d == pytest.approx(j.k_d, rel=1e-15)
     assert tcfg.DEFAULT_LAMBDA == jcfg.DEFAULT_LAMBDA
     assert tcfg.DEFAULT_SPACING == jcfg.DEFAULT_SPACING
+
+
+def test_campaign_constants_match_jax():
+    for name in ("DEFAULT_RSS_FCT", "SEED_TABLE", "MULTIRES_THRESHOLDS",
+                 "MULTIRES_SEPARATION"):
+        assert getattr(tcfg, name) == getattr(jcfg, name), name
+    for nt, nr, num in ((16, 16, 8), (4, 4, 8), (12, 8, 5), (32, 32, 8)):
+        assert tcfg.probe_budget_grid(nt, nr, num) == \
+            jcfg.probe_budget_grid(nt, nr, num)
+    assert tcfg.probe_budget_grid(16, 16) == (4, 36, 121, 225, 361, 529, 784,
+                                              1024)
+    for kw in ({}, dict(admm=True, plomp=True, admm_lowrank_v4=False)):
+        assert tcfg.MethodFlags(**kw).enabled() == \
+            jcfg.MethodFlags(**kw).enabled()
 
 
 def test_admm_config_from_jax_dict_round_trip():
@@ -84,6 +98,8 @@ def test_port_imports_no_jax():
     module (checked in a fresh interpreter)."""
     code = ("import sys, twoace_tpu_torch, twoace_tpu_torch.interop, "
             "twoace_tpu_torch.ops.pair_solver, "
+            "twoace_tpu_torch.pipeline, twoace_tpu_torch.sensing, "
+            "twoace_tpu_torch.ops.dispatch, "
             "twoace_tpu_torch.utils.metrics; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('twoace_tpu.')]; "

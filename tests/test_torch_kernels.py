@@ -153,10 +153,13 @@ def test_cpu_calls_count_no_launches():
         lad.fracs.expand(3, -1).contiguous()))
     zt = tpair(*z)
     kernels.pair_matmul(zt, Pair(zt.re.transpose(1, 2), zt.im.transpose(1, 2)))
+    axc = torch.complex(*tpair(*ax)).transpose(1, 2).contiguous()
+    kernels.fused_prox_dual(axc, torch.tensor(b), axc, torch.tensor(mu[0]))
     assert kernels.launch_counts() == {"fused_prox_dual_t": 0,
                                        "fused_zprox_t": 0,
                                        "fused_infer_admm": 0,
-                                       "pair_matmul": 0}
+                                       "pair_matmul": 0,
+                                       "fused_prox_dual": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -170,6 +173,9 @@ def test_other_devices_raise_instead_of_falling_back():
         kernels.fused_zprox_t(Pair(meta(2, 3, 4), meta(2, 3, 4)),
                               Pair(meta(2, 2, 2), meta(2, 2, 2)), 2, 2,
                               LadderArrays(meta(2, 4), meta(2, 4)))
+    c = torch.empty(2, 4, 3, dtype=torch.complex64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.fused_prox_dual(c, meta(2, 4), c, meta())
 
 
 def test_wrapper_checks_reject_what_the_kernels_do_not_take():
@@ -199,7 +205,7 @@ def test_build_is_keyed_by_the_sources(tmp_path, monkeypatch):
     headers they include, so a changed header cannot load a stale build."""
     names = sorted(p.name for p in _build.sources())
     assert names == ["infer_admm.cu", "pair_matmul.cu", "prox_dual.cu",
-                     "zprox.cu"]
+                     "prox_dual_rows.cu", "zprox.cu"]
     assert "zprox_core.cuh" in [p.name for p in _build.hashed_files()]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR

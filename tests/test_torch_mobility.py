@@ -4,6 +4,8 @@ its per-op loop against the JAX package's.
 - The host-side tracking loops (``track``, ``track_simulated``) and their helpers
   with one deterministic fake solver shared by both packages: identical
   errors, budgets, estimates and solver calls.
+- The tracking loops' default solver (the complex A2 solver,
+  ``make_complex_solver``) on one padded window against JAX's default.
 - The warm pair tracker at 4x4, window by window, each window started
   from JAX's own estimate of the window before.
 - The per-op loop with K4's plain version as its ``pair_gemm``, trip for
@@ -137,15 +139,36 @@ def test_track_simulated_matches_jax_with_a_shared_fake_solver():
 
 
 def test_default_solver_and_window_generators():
-    """JAX's default solver (the complex ops.admm solver) is not ported:
-    the tracking loops refuse to run without one.  Each window's generator is a
-    function of the run's seed and the window only."""
-    rows, amps, _ = _kron_stream(3, 2, 20)
+    """The tracking loops' default solver is JAX's, the complex A2 solver
+    (``make_complex_solver``): on a padded window of a static 4x4 channel
+    (48 active rows of 64, ladder_m snapped to 3n) it recovers the channel
+    as JAX's default solver does, both below -60 dB (the random streams
+    differ).  ``solver=None`` runs it on the card, and raises where there
+    is none.  Each window's generator is a function of the run's seed and
+    the window only."""
+    rows, amps, vhs = _kron_stream(3, 2, 24, drift=0.0)
+    rows, amps = rows.astype(np.complex128), amps.astype(np.float64)
+    window = list(range(48))
+    a_w, b_w = tmob._pad_window(rows, amps, window, 64)
+    lm = tmob._ladder_m_for_window(48, 64, N)
+    assert lm == jmob._ladder_m_for_window(48, 64, N) == 3 * N
+    admm = dict(maxiter=150, n_restarts=1)
+    xj = jmob.solve_lowrank_multi(
+        jax.random.PRNGKey(1), jnp.asarray(a_w), jnp.asarray(b_w), NT, NR,
+        jcfg.AdmmConfig(**admm), ladder_m=lm).x
     cfg = tcfg.ArrayConfig(nt=NT, nr=NR)
-    with pytest.raises(NotImplementedError, match="make_pair_solver"):
-        tmob.track(None, rows, amps, cfg)
-    with pytest.raises(NotImplementedError, match="make_pair_solver"):
-        tmob.track_simulated(None, rows, amps, cfg)
+    solver = tmob.make_complex_solver(cfg, tcfg.AdmmConfig(**admm),
+                                      device="cpu")
+    assert tmob._solver_takes_ladder_m(solver) and solver.cc_frac == 0.95
+    xt = solver(tmob.fold_in(torch.Generator().manual_seed(1), 1), a_w, b_w,
+                ladder_m=lm)
+    assert isinstance(xt, np.ndarray) and xt.dtype == np.complex128
+    assert nmse_db(np.asarray(xj), vhs[0]) < -60.0
+    assert nmse_db(xt, vhs[0]) < -60.0
+    if not torch.cuda.is_available():
+        for run in (tmob.track, tmob.track_simulated):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                run(None, rows, amps, cfg)
     g = torch.Generator().manual_seed(5)
     draw = lambda t: torch.rand(3, generator=tmob.fold_in(g, t))
     assert torch.equal(draw(2), draw(2))

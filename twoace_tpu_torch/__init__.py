@@ -3,10 +3,12 @@
 The package imports torch and numpy and never jax.  The JAX package
 ``twoace_tpu`` is the reference it is tested against.  Ported so far: the
 A2 solver of ``ops.pair_solver`` (``solve_lowrank_multi_pair_batch``,
-``solve_lowrank_multi_pair``, ``refine_lowrank_pair``) with its four
-hand-written CUDA kernels (``ops.kernels``); the steering and channel
-models (``models``); the random codebooks (``sensing``); and the mobility
-tracker (``pipeline.mobility``).
+``solve_lowrank_multi_pair``, ``refine_lowrank_pair``); the complex-dtype
+solver family (``ops.admm``, ``ops.dispatch``) and the testbed recovery
+campaigns (``pipeline.recovery``); five hand-written CUDA kernels
+(``ops.kernels``); the steering and channel models (``models``); the
+random codebooks, beam pick and measurement providers (``sensing``); and
+the mobility tracker (``pipeline.mobility``).
 """
 
 from . import interop  # noqa: F401

@@ -1,10 +1,13 @@
 """Configuration dataclasses of the PyTorch port.
 
-A field-for-field copy of the solver-side dataclasses of
-``twoace_tpu.config`` (``AdmmConfig``, ``SpectralProfileConfig``,
-``ArrayConfig``, ``ChannelConfig``).  It is a copy and not an import
-because importing ``twoace_tpu`` pulls in jax; ``tests/test_torch_config.py``
-holds every default to the JAX package's.
+A field-for-field copy of ``twoace_tpu.config``: the dataclasses
+``AdmmConfig``, ``SpectralProfileConfig``, ``ArrayConfig``,
+``ChannelConfig`` and ``MethodFlags``, the campaign constants and
+:func:`probe_budget_grid`.  It is a copy and not an import because
+importing ``twoace_tpu`` pulls in jax; ``tests/test_torch_config.py``
+holds every default to the JAX package's.  The lifted baselines'
+configs (``PhaseLiftConfig``, ``TwoStageConfig``) wait for the
+baselines.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
+
 SPEED_OF_LIGHT = 3.0e8
 #: 60.48 GHz carrier (ref: A2only.m:40)
 DEFAULT_CARRIER_HZ = 60.48e9
@@ -20,6 +25,20 @@ DEFAULT_CARRIER_HZ = 60.48e9
 DEFAULT_LAMBDA = SPEED_OF_LIGHT / DEFAULT_CARRIER_HZ
 #: antenna spacing of the QCA6310 URA (ref: A2only.m:41)
 DEFAULT_SPACING = 3.055e-3
+#: RSS multiplicative factor moving amplitudes near 1 (ref: A2only.m:132)
+DEFAULT_RSS_FCT = 1e5 / 3.0
+
+#: Fixed seed table of the MATLAB entry points (ref: A2only.m:103): a
+#: ``seed_id`` names the same experiment in every stack, though the random
+#: streams drawn from a seed differ between them.
+SEED_TABLE: Tuple[int, ...] = (
+    58659179, 42737934, 36326041, 89830260, 90710947, 96474890, 33424536,
+    67991541, 42149446, 38961924, 54659060, 32629256, 33087755, 27433950,
+    9404442, 20146383, 84040563, 75325961, 47726929, 13999319, 5597853,
+    74801351, 37024073, 75534492, 99245881, 19650488, 5314224, 98859252,
+    60803022, 76056701, 14112116, 64027813, 73073690, 6288587, 42217659,
+    45632040, 7495955, 31960297, 92863244, 93081516,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,3 +130,39 @@ class AdmmConfig:
     stage1_maxiter: Optional[int] = None
     #: iteration cap of the second (per-column) pass; None = maxiter
     stage2_maxiter: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class MethodFlags:
+    """Which recovery algorithms to run (the reference's ``Method`` struct,
+    ref: A2only.m:66-101, Recover_Channel.m:3-45)."""
+
+    phaselift: bool = False
+    cprl: bool = False
+    prgamp: bool = False
+    sparse_pl: bool = False
+    plomp: bool = False
+    plgamp: bool = False
+    admm: bool = False            #: version 0 (inferMinL2)
+    admm_lowrank_v1: bool = False
+    admm_lowrank_v2: bool = False
+    admm_lowrank_v3: bool = False
+    admm_lowrank_v4: bool = True  #: the 2ACE "A2" solver
+    admm_nuclear: bool = False
+
+    def enabled(self):
+        return [f.name for f in dataclasses.fields(self) if getattr(self, f.name)]
+
+
+def probe_budget_grid(nt: int, nr: int, num: int = 8) -> Tuple[int, ...]:
+    """The M grid ``round(linspace(2, sqrt(4*Nt*Nr), num)).^2`` (ref:
+    A2only.m:106-118); (4, 36, 121, 225, 361, 529, 784, 1024) for 16x16.
+    MATLAB's round() takes halves away from zero."""
+    lin = np.linspace(2.0, np.sqrt(4.0 * nt * nr), num)
+    return tuple(int(np.floor(x + 0.5)) ** 2 for x in lin)
+
+
+#: multi-resolution tier thresholds and row offsets of the 16-antenna
+#: codebook (ref: channel_recovery_ADMM_v2_simulation_multiresolution.m:111-112)
+MULTIRES_THRESHOLDS: Tuple[int, int] = (96, 256)
+MULTIRES_SEPARATION: Tuple[int, int, int] = (1984, 3968, 3968)

@@ -1,3 +1,5 @@
 """Solver ops of the PyTorch port: pair arithmetic (:mod:`.cplx`), the
-constraint ladder (:mod:`.prox`), the CUDA kernels (:mod:`.kernels`) and
-the batched A2 solver (:mod:`.pair_solver`)."""
+prox operators and constraint ladder (:mod:`.prox`), the CUDA kernels
+(:mod:`.kernels`), the pair A2 solvers (:mod:`.pair_solver`), the
+complex-dtype solver family (:mod:`.admm`, :mod:`.spectral_init`) and its
+dispatchers (:mod:`.dispatch`)."""

@@ -7,7 +7,10 @@ PyTorch version.  Port of ``twoace_tpu.ops.pallas.kernels``:
 - :func:`fused_infer_admm` (K3, ``csrc/infer_admm.cu``), the whole
   InferADMM loop, port of ``twoace_tpu.ops.pallas.solver_kernel``;
 - :func:`pair_matmul` (K4, ``csrc/pair_matmul.cu``), the batched pair
-  GEMM of the per-op loop.
+  GEMM of the per-op loop;
+- :func:`fused_prox_dual` (K5, ``csrc/prox_dual_rows.cu``), the
+  row-layout magnitude prox + M-dual of the complex-dtype loop
+  (``ops.admm``).
 
 Each wrapper counts its launches in a plain integer attribute
 ``.launches``; a CPU tensor takes the plain version and counts nothing.
@@ -17,8 +20,10 @@ from .prox_dual import fused_prox_dual_t, prox_dual_t_plain  # noqa: F401
 from .zprox import fused_zprox_t, zprox_t_plain  # noqa: F401
 from .pair_matmul import pair_matmul, pair_matmul_plain  # noqa: F401
 from .infer_admm import fused_infer_admm, infer_admm_plain  # noqa: F401
+from .prox_dual_rows import fused_prox_dual, prox_dual_rows_plain  # noqa: F401
 
-KERNELS = (fused_prox_dual_t, fused_zprox_t, fused_infer_admm, pair_matmul)
+KERNELS = (fused_prox_dual_t, fused_zprox_t, fused_infer_admm, pair_matmul,
+           fused_prox_dual)
 
 
 def reset_launch_counts() -> None:

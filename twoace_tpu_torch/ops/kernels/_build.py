@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the exported functions; every pointer and the stream are
 # c_void_p so ctypes does not cut them to 32 bits
 SIGNATURES = {
@@ -38,6 +39,7 @@ SIGNATURES = {
     "twoace_zprox_t": [_P] * 10 + [_I, _I, _I, _I, _P],
     "twoace_infer_admm": [_P] * 21 + [_I] * 11 + [_F] * 3 + [_P],
     "twoace_pair_matmul": [_P] * 6 + [_I] * 4 + [_P],
+    "twoace_prox_dual_rows": [_P] * 6 + [_L, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -10,8 +10,9 @@ the budget to zero.
 The tracking loops (:func:`track`, :func:`track_simulated`) are host-side
 numpy, as in the JAX package; the solver callbacks own the device (the
 card by default) and take a ``torch.Generator`` where JAX's take a PRNG
-key.  The JAX loops' default solver, the complex-dtype ``ops.admm``
-solver, is not ported: pass a solver, e.g. :func:`make_pair_solver`.
+key.  Their default solver, as in JAX, is the complex-dtype A2 solver
+``ops.admm.solve_lowrank_multi`` (:func:`make_complex_solver`), on the
+card.
 """
 
 from __future__ import annotations
@@ -26,29 +27,13 @@ import numpy as np
 import torch
 
 from ..config import AdmmConfig, ArrayConfig, ChannelConfig
-from ..interop import pair_from_numpy, resolve_device
+from ..interop import complex_from_numpy, pair_from_numpy, resolve_device
+from ..ops.admm import solve_lowrank_multi
 from ..ops.cplx import Pair
+from ..utils.rng import fold_in  # noqa: F401  (re-exported)
 from ..ops.pair_solver import (_normalize_problem_pair, refine_lowrank_pair,
                                solve_lowrank_multi_pair,
                                spectral_initialize_pair)
-
-
-def fold_in(generator: Optional[torch.Generator], data: int
-            ) -> torch.Generator:
-    """A CPU generator derived from ``generator``'s seed and ``data``, as
-    ``jax.random.fold_in`` derives a key: each window's draws do not
-    depend on what earlier windows drew."""
-    seed = 0 if generator is None else generator.initial_seed()
-    state = np.random.SeedSequence([seed, data]).generate_state(2, np.uint32)
-    return torch.Generator().manual_seed(
-        int(state[0]) << 32 | int(state[1]))
-
-
-def _no_default_solver(*_, **__):
-    raise NotImplementedError(
-        "the tracker's default solver, the complex-dtype ops.admm "
-        "solve_lowrank_multi, is not ported: pass solver=, e.g. "
-        "make_pair_solver(cfg, admm)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,8 +162,9 @@ def track(generator: Optional[torch.Generator], cb_rows, rss_amps,
     ``cb_rows``: (T * window_probes, n) probe rows in time order;
     ``rss_amps``: matching linear RSS amplitudes (numpy, or tensors that
     are brought to the host).  ``solver(gen, a, b) -> x`` gets window t's
-    generator ``fold_in(generator, t)``; None raises NotImplementedError
-    (JAX's default is the unported complex solver).
+    generator ``fold_in(generator, t)``; None runs JAX's default, the
+    complex A2 solver on the card (:func:`make_complex_solver` with
+    ``mob.admm``), and raises without one.
 
     The sliding window holds *whole* windows of probes, trimmed to the
     last ``max_window`` probes (ref :169-174); the reference always
@@ -188,7 +174,7 @@ def track(generator: Optional[torch.Generator], cb_rows, rss_amps,
     :func:`_pad_window`); pass False for the reference's dynamic shapes.
     """
     if solver is None:
-        _no_default_solver()
+        solver = make_complex_solver(cfg, mob.admm)
     n = cfg.n
     t_size = mob.window_probes
     cb_rows = _host(cb_rows)
@@ -239,6 +225,29 @@ def _pair_problem(a, b, device):
 
 def _to_numpy(x: Pair) -> np.ndarray:
     return x.re.cpu().numpy() + 1j * x.im.cpu().numpy()
+
+
+def make_complex_solver(cfg: ArrayConfig, admm: AdmmConfig = AdmmConfig(),
+                        device="cuda") -> Callable:
+    """The tracking loops' default solver (JAX's): every window re-solved
+    cold by the complex A2 solver :func:`..ops.admm.solve_lowrank_multi`
+    on ``device``, with the window's ``ladder_m``.  The window keeps its
+    complex type (complex64 from the tracker's rows); b takes the matching
+    real type.  On the card each trip's magnitude prox and M-dual run in
+    kernel K5.
+    """
+    resolve_device(device)
+
+    def solver(gen, a, b, ladder_m=None):
+        at = complex_from_numpy(a, device=device)
+        bt = torch.as_tensor(np.asarray(b), dtype=at.real.dtype,
+                             device=at.device)
+        res = solve_lowrank_multi(gen, at, bt, cfg.nt, cfg.nr, admm,
+                                  ladder_m=ladder_m)
+        return res.x.cpu().numpy()
+
+    solver.cc_frac = admm.cc_frac     # ladder-snap boundary (see track())
+    return solver
 
 
 def make_pair_solver(cfg: ArrayConfig, admm: AdmmConfig = AdmmConfig(),
@@ -383,11 +392,11 @@ def track_simulated(generator: Optional[torch.Generator], cb_rows, rss_amps,
     the budget shrinks ``M <- max(0, M - floor(M/5) - 1)`` on success or
     grows ``M <- min(m_max, M + floor(M/5) + 1)`` on failure.  A window
     contributes at most P - 1 probes, so a held-out remainder always
-    exists.  ``solver=None`` raises NotImplementedError, as in
+    exists.  ``solver=None`` runs the complex A2 solver on the card, as in
     :func:`track`.
     """
     if solver is None:
-        _no_default_solver()
+        solver = make_complex_solver(cfg, mob.admm)
     n = cfg.n
     p = mob.window_probes
     cb_rows = _host(cb_rows)
