@@ -29,13 +29,29 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      maxiter 500) after one short warm-up track each: windows/s, median
      per-window ms, tracked NMSE, the budget branches, launches and a
      profiled window; then a 10-window ``track_simulated`` on a
-     ``brownian_trace``.
+     ``brownian_trace``;
+  6. the testbed campaign through the complex family (K5):
+     ``recover_a2only`` over the 16x16 probe-budget grid on 3968 random
+     probe rows, a noiseless M = 1024 point, ``recover_a2nuclear``,
+     ``recover_warm_sweep``, ``track(solver=None)`` for TRACK_WINDOWS
+     windows and one profiled M = 1024 solve;
+  7. the headline Vs_M campaign of VSM_r05.json: ``sweep_measurements``
+     at 16x16 with A2 on the pair path (K3) against PhaseLift, PLOMP,
+     PLGAMP and perfect/noisy-phase CS, each curve beside VSM_r05's (it
+     fails if one is more than 3 dB off at M >= 529, or if A2 does not
+     beat PLOMP at M = 784 and 1024); one complex-family A2 cell (K5),
+     one ``sweep_snr`` point beside VSSNR_r05.json, one profiled cell.
+
+Between phases 2 and 3 the chain benchmark (``chain``), K6's own path,
+runs ``scripts/torch_bench_pallas_mm.py``'s body.
 
 Phase 2 also holds K4 (the per-op loop's pair GEMM) against its plain
 version at the batch solver's, the anchored refine's (one row: the warm
 trackers' m 80 and 256, phase 4's m 1024) and a ragged shape, and K5 at
 the campaign's, the refine's and a tracker window's shapes, a ragged m
-and complex128.  Each path (the batch solve, the single solves, the
+and complex128, and K6 at the chain benchmark's batch and a ragged
+one.  Phase 2 also reads K1's, K5's and K6's device time a launch from
+the profiler beside their CUDA-event times.  Each path (the batch solve, the single solves, the
 refine, each tracker, each part of the campaign) is driven with the
 launch counts set to 0 just before it and read just after, and fails if
 a kernel it runs was never launched.
@@ -63,15 +79,16 @@ from twoace_tpu_torch.ops import admm, dispatch  # noqa: E402
 from twoace_tpu_torch.ops.cplx import LadderArrays, Pair  # noqa: E402
 from twoace_tpu_torch.ops import pair_solver  # noqa: E402
 from twoace_tpu_torch.ops.kernels import (  # noqa: E402
-    _build, fused_infer_admm, fused_prox_dual, fused_prox_dual_t,
-    fused_zprox_t, infer_admm_plain, launch_counts, pair_matmul,
-    pair_matmul_plain, prox_dual_rows_plain, prox_dual_t_plain,
-    reset_launch_counts, zprox_t_plain)
+    _build, chain_mm, fused_infer_admm, fused_prox_dual, fused_prox_dual_t,
+    fused_zprox_t, infer_admm_plain, launch_counts, pair_chain_mm,
+    pair_chain_mm_plain, pair_matmul, pair_matmul_plain,
+    prox_dual_rows_plain, prox_dual_t_plain, reset_launch_counts,
+    zprox_t_plain)
 from twoace_tpu_torch.ops.pair_solver import (  # noqa: E402
     no_tf32, refine_lowrank_pair, solve_lowrank_multi_pair,
     solve_lowrank_multi_pair_batch)
 from twoace_tpu_torch.ops.prox import profile_ladder_arrays  # noqa: E402
-from twoace_tpu_torch.pipeline import mobility, recovery  # noqa: E402
+from twoace_tpu_torch.pipeline import mobility, recovery, simulation  # noqa: E402
 from twoace_tpu_torch.sensing.codebooks import (  # noqa: E402
     kron_probe_rows, random_codebook)
 from twoace_tpu_torch.sensing.provider import SyntheticProvider  # noqa: E402
@@ -129,12 +146,44 @@ K5_SHAPES = [(M_TRAIN, R, torch.complex64, False),
              (80, R, torch.complex64, False),
              (97, 3, torch.complex64, True),
              (M_TRAIN, R, torch.complex128, False)]
+#: K6 against its plain version: max |difference| over max |plain|, at the
+#: benchmark's batch and a ragged one
+K6_RTOL = 1e-5
+K6_BATCHES = (chain_mm.B, 100)
+#: the chain benchmark's error after 800 products against numpy complex128
+#: (2.6e-6 for the plain version on the CPU at B 32)
+K6_CHAIN_ATOL = 1e-4
 #: phase 6: the shipped random_probe_cb_16x16.mat's dimensions
 CAMPAIGN_ROUNDS, CAMPAIGN_SECTORS = 64, 62
 CAMPAIGN_SEED = 6
 #: the channel's scale, as in the testbed sample (about -46 dBm per probe)
 CHANNEL_SCALE = 3e-4
 TRACK_WINDOWS = 10
+
+#: phase 7: the headline Vs_M campaign of VSM_r05.json
+#: (scripts/finalize_vsm_artifact.py:6-10): 16x16, 3 paths, 95 degrees,
+#: SNR 20, Random_Phase_State, maxiter 500, 3 restarts, seed 1, A2 against
+#: PhaseLift, PLOMP, PLGAMP and perfect/noisy-phase CS
+VSM_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "VSM_r05.json")
+VSSNR_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "VSSNR_r05.json")
+VSM_SEED = 1
+VSM_AREA = 95.0
+#: trials per point: VSM_r05 ran 10; cut to 5 (292 s on an H100, the
+#: two-stage FISTA's 4000 eigh a recovery; PERF.md sections 4 and 5) for
+#: the script's time limit
+VSM_TRIALS = 5
+#: the checks at M >= VSM_CHECK_FROM: every curve within VSM_TOL_DB of
+#: VSM_r05's, and A2 below PLOMP at VSM_A2_WINS
+VSM_CHECK_FROM = 529
+VSM_TOL_DB = 3.0
+VSM_A2_WINS = (784, 1024)
+#: the complex-family cell (A2 alone) and the profiled cell (every
+#: method): M 1024, 2 trials; the Vs_SNR point: VSSNR_r05's M 529 at SNR
+#: 10, VSM_TRIALS trials
+VSM_SIDE_TRIALS = 2
+VSSNR_M, VSSNR_SNR = 529, 10.0
 
 #: H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 flop/s
 #: outside the tensor cores
@@ -179,6 +228,48 @@ def cuda_ms(fn, reps=50):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_events(prof):
+    """{name: [ms, count]} of the device's own events (kernels, copies)
+    in a finished torch.profiler run, summed from the raw trace: a CPU
+    op's device time would repeat its kernels', and parsing the trace
+    into the profiler's event tree (``key_averages``) takes minutes for
+    the 10^5 launches of a Vs_M cell."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    results = prof.profiler.kineto_results
+    for e in (results.events() if results is not None else ()):
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            acc = out.setdefault(e.name(), [0.0, 0])
+            acc[0] += e.duration_ns() / 1e6
+            acc[1] += 1
+    return out
+
+
+def device_ms(fn, reps=20):
+    """Mean device milliseconds per call of ``fn()`` under torch.profiler:
+    its kernels' own time, without the host's cost of the call that
+    ``cuda_ms``'s events take in when a wrapper outlasts its kernel.
+    None if the profiler saw no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):                  # the profiler now and then sees none
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(ms for ms, _ in device_events(prof).values())
+        if total > 0:
+            return total / reps
+    return None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.6f} ms"
 
 
 def max_err(got, want):
@@ -235,16 +326,20 @@ def phase2_kernels():
                                                    per_entry=per_entry))
             plain = cuda_ms(lambda: prox_dual_t_plain(ax, b, md, mu,
                                                       per_entry))
-            times[(m, per_entry)] = (ms, plain)
+            dev = device_ms(lambda: fused_prox_dual_t(ax, b, md, mu,
+                                                      per_entry=per_entry))
+            times[(m, per_entry)] = (ms, plain, dev)
             print(f"[2 K1 fused_prox_dual_t] lanes {LANES} r {R} m {m} "
                   f"per_entry {per_entry}: max_abs_err {err:.3e} | kernel "
-                  f"{ms:.4f} ms | plain {plain:.4f} ms", flush=True)
+                  f"{ms:.4f} ms (events), device {fmt_ms(dev)} per launch "
+                  f"(profiler) | plain {plain:.4f} ms", flush=True)
     # bound at the row-form m 972 shape: 4 planes in, 4 out, b and mu;
     # about 16 flops per entry
     k1_bytes = (8 * LANES * R * M_TRAIN + LANES * M_TRAIN + LANES) * 4
     summary["fused_prox_dual_t"] = dict(
         max_abs_err=max(errs), ms=times[(M_TRAIN, False)][0],
         plain_ms=times[(M_TRAIN, False)][1],
+        device_ms=times[(M_TRAIN, False)][2],
         **bound(k1_bytes, 16 * LANES * R * M_TRAIN), library_ms=None)
 
     # K2: warm basis from a cold eigh of a perturbed z; the lanes mix the
@@ -284,7 +379,73 @@ def phase2_kernels():
     summary["fused_infer_admm"] = phase2_k3()
     summary["pair_matmul"] = phase2_k4()
     summary["fused_prox_dual"] = phase2_k5()
+    summary["pair_chain_mm"] = phase2_k6()
     return summary
+
+
+def phase2_k6():
+    """K6 against its plain version at K6_BATCHES of (16, 16) instances
+    (8 steps), with the times of both, of the complex64 ``torch.matmul``
+    chain and the bound: V and G read once and V' written once, and the
+    Karatsuba chain's 3 real n x n x n products a step."""
+    out = {}
+    for batch in K6_BATCHES:
+        planes = chain_mm.lane_inputs(seed=6, b=batch)
+        v = chain_mm.from_lanes(Pair(*(torch.as_tensor(p, device="cuda")
+                                       for p in planes[:2])))
+        g = chain_mm.from_lanes(Pair(*(torch.as_tensor(p, device="cuda")
+                                       for p in planes[2:])))
+        vc, gc = torch.complex(*v), torch.complex(*g)
+        with no_tf32():
+            got = pair_chain_mm(v, g)
+            want = pair_chain_mm_plain(v, g)
+            torch.cuda.synchronize()
+            rel = max(float((x - w).abs().max() / w.abs().max())
+                      for x, w in zip(got, want))
+            if not rel <= K6_RTOL:
+                raise RuntimeError(f"K6 disagrees with its plain version at "
+                                   f"B {batch}: {rel:.3e} > {K6_RTOL}")
+            err = max_err(got, want)
+            ms = cuda_ms(lambda: pair_chain_mm(v, g))
+            plain = cuda_ms(lambda: pair_chain_mm_plain(v, g))
+            lib = cuda_ms(lambda: chain_mm.library_chain(vc, gc))
+            dev = device_ms(lambda: pair_chain_mm(v, g))
+        n = chain_mm.N
+        bnd = bound(nbytes(v, g, got),
+                    chain_mm.CHAIN * batch * 3 * 2 * n ** 3)
+        print(f"[2 K6 pair_chain_mm] B {batch}, {n}x{n}, {chain_mm.CHAIN} "
+              f"steps: max rel err {rel:.3e} (tol {K6_RTOL}), max abs err "
+              f"{err:.3e} | kernel {ms:.4f} ms (events), device "
+              f"{fmt_ms(dev)} per launch (profiler) | plain {plain:.4f} ms | "
+              f"complex64 torch.matmul chain {lib:.4f} ms | bound "
+              f"{bnd['bound_ms']:.6f} ms ({bnd['bound_by']})", flush=True)
+        out[batch] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                          device_ms=dev, **bnd, library_ms=lib)
+    return out[K6_BATCHES[0]]
+
+
+def phase_chain_bench():
+    """K6's own path, ``scripts/torch_bench_pallas_mm.py``: 100 launches of
+    the 8-step chain at B 256 timed back to back for K6, its plain version
+    and the complex64 ``torch.matmul`` chain, and each route's error after
+    800 products against numpy complex128."""
+    reset_launch_counts()
+    res = chain_mm.chain_benchmark()
+    counts = launch_counts()
+    require_launched(counts, ("pair_chain_mm",), "the chain benchmark")
+    worst = max(res[f"{r}_max_abs_err"] for r in ("kernel", "plain", "library"))
+    print(f"[chain] torch_bench_pallas_mm B {res['b']} {res['n']}x{res['n']}, "
+          f"{res['reps']} launches of {res['chain']} steps: us per batched "
+          f"product: K6 {res['kernel_us_per_product']:.3f} | plain "
+          f"{res['plain_us_per_product']:.3f} | complex64 torch.matmul "
+          f"{res['library_us_per_product']:.3f} || max abs err vs numpy "
+          f"complex128: K6 {res['kernel_max_abs_err']:.2e} | plain "
+          f"{res['plain_max_abs_err']:.2e} | library "
+          f"{res['library_max_abs_err']:.2e} | launches {counts}", flush=True)
+    if not worst <= K6_CHAIN_ATOL:
+        raise RuntimeError(f"the chain benchmark's error {worst:.2e} > "
+                           f"{K6_CHAIN_ATOL}")
+    return counts
 
 
 def phase2_k5():
@@ -315,13 +476,16 @@ def phase2_k5():
         ms = cuda_ms(lambda: fused_prox_dual(ax, b, md, mu, per_entry))
         plain = cuda_ms(lambda: prox_dual_rows_plain(ax, b, md, mu,
                                                      per_entry))
+        dev = device_ms(lambda: fused_prox_dual(ax, b, md, mu, per_entry))
         bnd = bound(nbytes(ax, md, b, mu, *got), 20 * m * r)
         print(f"[2 K5 fused_prox_dual] {label}: max rel err {rel:.3e} (tol "
               f"{K5_RTOL[dtype]}), max abs err {err:.3e} | kernel {ms:.4f} "
-              f"ms | plain {plain:.4f} ms | bound {bnd['bound_ms']:.6f} ms "
+              f"ms (events), device {fmt_ms(dev)} per launch (profiler) | "
+              f"plain {plain:.4f} ms | bound {bnd['bound_ms']:.6f} ms "
               f"({bnd['bound_by']})", flush=True)
         out[(m, r, dtype, per_entry)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, **bnd, library_ms=None)
+            max_abs_err=err, ms=ms, plain_ms=plain, device_ms=dev, **bnd,
+            library_ms=None)
     return out[K5_SHAPES[0]]
 
 
@@ -558,32 +722,29 @@ def require_launched(counts, names, path):
 
 def profile_call(label, fn):
     """One call of ``fn`` under torch.profiler: device time by kernel
-    against the call's wall time.  The device's own events only: a CPU
-    op's device time would repeat its kernels' (the profiler's own "Self
-    CUDA time total" counts kernels alone), and recording the host's ops
-    of a many-trip solve costs minutes of post-processing."""
-    from torch.autograd import DeviceType
+    against the call's wall time, from the device's own events
+    (:func:`device_events`); recording the host's ops of a many-trip
+    solve costs minutes of post-processing.  Returns ``fn()``'s result."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and not e.is_user_annotation and e.self_device_time_total > 0]
-    total = sum(e.self_device_time_total for e in events) / 1e3
+    events = device_events(prof)
+    total = sum(ms for ms, _ in events.values())
     if total <= 0:
         print(f"{label} device time not measured (the profiler saw no "
               "CUDA kernels)", flush=True)
-        return
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    parts = " | ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} "
-                       f"ms x{e.count}" for e in top)
+        return out
+    top = sorted(events.items(), key=lambda kv: -kv[1][0])[:6]
+    parts = " | ".join(f"{name[:40]} {ms:.2f} ms x{count}"
+                       for name, (ms, count) in top)
     print(f"{label} under the profiler: wall {wall_ms:.2f} ms, device busy "
           f"{total:.2f} ms ({100 * total / wall_ms:.1f}%) | {parts}",
           flush=True)
+    return out
 
 
 def single_workload():
@@ -1077,6 +1238,140 @@ def phase6_campaign(cold_k3):
     return totals
 
 
+def vsm_config(trials, impl="pair", methods=("admm_lowrank_v4", "phaselift",
+                                            "plomp", "plgamp")):
+    """The headline Vs_M configuration (as the JAX CLI's vs-m builds it,
+    twoace_tpu/cli.py:74-88)."""
+    return simulation.SimulationConfig(
+        array=ArrayConfig(nt=NT, nr=NR),
+        channel=ChannelConfig(n_paths=3, rician_k=0), snr_db=20.0,
+        beam_method="Random_Phase_State",
+        methods=MethodFlags(**{m: True for m in methods}),
+        admm=AdmmConfig(maxiter=500, n_restarts=RESTARTS), n_trials=trials,
+        impl=impl)
+
+
+def run_sweep(label, fn, need):
+    """``fn()`` (a sweep) with the launch counts set to 0 just before it
+    and read just after; fails unless every kernel in ``need`` was
+    launched.  Returns the result, the wall seconds and the counts."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    require_launched(counts, need, label)
+    for name, curve in res.nmse.items():
+        if not np.all(np.isfinite(curve)) or not np.all(curve > 0):
+            raise RuntimeError(f"{label}: {name} NMSE {curve} is not finite "
+                               f"and positive")
+    return res, wall, counts
+
+
+def print_cells(tag, res):
+    """Each point's host seconds (the cell and each method group, as the
+    sweep records them) and two-stage compression sizes."""
+    for i, point in enumerate(res.grid.tolist()):
+        times = " | ".join(f"{k} {v[i]:.2f} s" for k, v in res.seconds.items())
+        print(f"{tag} {point}: {times} | mCS {res.mcs[i].tolist()}",
+              flush=True)
+
+
+def phase7_vsm():
+    """The headline Vs_M campaign (VSM_r05.json's configuration) at full
+    width through ``sweep_measurements`` with A2 on the pair path (K3),
+    each curve beside VSM_r05's; then one complex-family A2 cell (K5), one
+    Vs_SNR point beside VSSNR_r05's, and one profiled M 1024 cell."""
+    with open(VSM_REF) as f:
+        ref = json.load(f)
+    grid = list(probe_budget_grid(NT, NR))
+    if grid != ref["m_grid"]:
+        raise RuntimeError(f"grid {grid} differs from VSM_r05's {ref['m_grid']}")
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    res, wall, counts = run_sweep(
+        "the Vs_M sweep", lambda: simulation.sweep_measurements(
+            torch.Generator().manual_seed(VSM_SEED), grid,
+            vsm_config(VSM_TRIALS), VSM_AREA), ("fused_infer_admm",))
+    add(counts)
+    print_cells("[7 vsm] M", res)
+    db = {k: 10 * np.log10(v) for k, v in res.nmse.items()}
+    if sorted(db) != sorted(ref["nmse_db"]):
+        raise RuntimeError(f"curves {sorted(db)} vs VSM_r05's "
+                           f"{sorted(ref['nmse_db'])}")
+    failures = []
+    for name in ref["nmse_db"]:
+        want = np.asarray(ref["nmse_db"][name])
+        print(f"[7 vsm] {name}: NMSE dB {np.round(db[name], 2).tolist()} | "
+              f"VSM_r05 {want.tolist()} | per-trial std dB "
+              f"{np.round(np.std(10 * np.log10(res.nmse_trials[name]), axis=1), 2).tolist()}"
+              f" | AoD/AoA err deg {np.round(res.aoda_err[name], 2).tolist()}",
+              flush=True)
+        for i, m in enumerate(grid):
+            if m >= VSM_CHECK_FROM and abs(db[name][i] - want[i]) > VSM_TOL_DB:
+                failures.append(f"{name} at M {m}: {db[name][i]:.2f} dB vs "
+                                f"VSM_r05 {want[i]:.2f}")
+    for m in VSM_A2_WINS:
+        i = grid.index(m)
+        if not db["admm_lowrank_v4"][i] < db["plomp"][i]:
+            failures.append(f"A2 {db['admm_lowrank_v4'][i]:.2f} dB does not "
+                            f"beat PLOMP {db['plomp'][i]:.2f} at M {m}")
+    print(f"[7 vsm] sweep_measurements {NT}x{NR}, {VSM_TRIALS} trials, "
+          f"impl pair: {wall:.1f} s | launches {counts}", flush=True)
+    if failures:
+        raise RuntimeError("Vs_M checks failed: " + "; ".join(failures))
+
+    res, wall, counts = run_sweep(
+        "the complex-family cell", lambda: simulation.sweep_measurements(
+            torch.Generator().manual_seed(VSM_SEED + 1), [M],
+            vsm_config(VSM_SIDE_TRIALS, impl="complex",
+                       methods=("admm_lowrank_v4",)), VSM_AREA),
+        ("fused_prox_dual",))
+    add(counts)
+    print_cells("[7 complex] M", res)
+    print(f"[7 complex] impl complex, M {M}, {VSM_SIDE_TRIALS} trials: "
+          f"{wall:.1f} s | NMSE dB "
+          f"{ {k: round(float(10 * np.log10(v[0])), 2) for k, v in res.nmse.items()} }"
+          f" | launches {counts}", flush=True)
+
+    with open(VSSNR_REF) as f:
+        ref_snr = json.load(f)
+    j = ref_snr["snr_grid_db"].index(VSSNR_SNR)
+    res, wall, counts = run_sweep(
+        "the Vs_SNR point", lambda: simulation.sweep_snr(
+            torch.Generator().manual_seed(VSM_SEED), [VSSNR_SNR], VSSNR_M,
+            vsm_config(VSM_TRIALS, methods=("admm_lowrank_v4", "plomp",
+                                            "plgamp")), VSM_AREA),
+        ("fused_infer_admm",))
+    add(counts)
+    print_cells("[7 snr] SNR", res)
+    print(f"[7 snr] sweep_snr M {VSSNR_M}, SNR {VSSNR_SNR}, {VSM_TRIALS} "
+          f"trials: {wall:.1f} s | NMSE dB "
+          + " | ".join(f"{k} {10 * np.log10(v[0]):.2f} (VSSNR_r05 "
+                       f"{ref_snr['nmse_db'][k][j]})"
+                       for k, v in res.nmse.items())
+          + f" | launches {counts}", flush=True)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    profile_call(f"[7 profile] sweep_measurements M {M}, "
+                 f"{VSM_SIDE_TRIALS} trials, impl pair",
+                 lambda: simulation.sweep_measurements(
+                     torch.Generator().manual_seed(VSM_SEED + 2), [M],
+                     vsm_config(VSM_SIDE_TRIALS), VSM_AREA))
+    print(f"[7 profile] {time.perf_counter() - t0:.1f} s with the "
+          "profiler's own cost", flush=True)
+    counts = launch_counts()
+    require_launched(counts, ("fused_infer_admm",), "the profiled cell")
+    add(counts)
+    return totals
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -1094,6 +1389,7 @@ def main():
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 
+    add(phase_chain_bench())
     add(phase3_slice())
     add(phase4_single())
     done(4)
@@ -1102,6 +1398,8 @@ def main():
     done(5)
     add(phase6_campaign(cold_k3))
     done(6)
+    add(phase7_vsm())
+    done(7)
     sources = {"fused_prox_dual_t": ("twoace_tpu_torch/csrc/prox_dual.cu",
                                      "twoace_tpu/ops/pallas/kernels.py:121"),
                "fused_zprox_t": ("twoace_tpu_torch/csrc/zprox.cu",
@@ -1111,7 +1409,9 @@ def main():
                "pair_matmul": ("twoace_tpu_torch/csrc/pair_matmul.cu",
                                "twoace_tpu/ops/pallas/kernels.py:182"),
                "fused_prox_dual": ("twoace_tpu_torch/csrc/prox_dual_rows.cu",
-                                   "twoace_tpu/ops/pallas/kernels.py:55")}
+                                   "twoace_tpu/ops/pallas/kernels.py:55"),
+               "pair_chain_mm": ("twoace_tpu_torch/csrc/chain_mm.cu",
+                                 "scripts/bench_pallas_mm.py:76")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **summary[name])
                for name, (src, rep) in sources.items()]

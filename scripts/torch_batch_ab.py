@@ -2,14 +2,17 @@
 """A/B timing of chip_smoke.py's phase 3, the port's batch solve, between
 two checkouts on one GPU.
 
-    python3 scripts/torch_batch_ab.py BASE_DIR [--pairs 10]
+    python3 scripts/torch_batch_ab.py BASE_DIR [--pairs 10] [--profile-head]
 
 Starts one worker process in BASE_DIR and one in the checkout that holds
 this script.  Each imports its own tree's ``twoace_tpu_torch`` and
 ``chip_smoke.build_solve_problem`` (the bench.py solve workload: seed 1,
 64 two-path 16x16 channels, m = 1024), and solves it once to warm up at
 phase 3's config (maxiter 500, warm_iters 80, pass caps 120/160, split
-generator seed 0).  Then the workers take turns in the order base, head,
+generator seed 0).  With ``--profile-head`` the head worker first takes
+one torch.profiler measurement (``chip_smoke.device_ms``, with which
+phase 2 reads K1's, K5's and K6's device time before phase 3) of an
+elementwise op.  Then the workers take turns in the order base, head,
 head, base, ..., ``--pairs`` timed solves each, one
 ``solve_lowrank_multi_pair_batch`` between CUDA events.  Prints one line
 per solve, then a JSON summary: per side the rec/s median and quartiles,
@@ -29,7 +32,7 @@ import numpy as np
 HEAD_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def worker():
+def worker(profile_first):
     """Serve timed solves: one per line read on stdin."""
     sys.path.insert(0, os.getcwd())
     import torch
@@ -50,6 +53,9 @@ def worker():
         return solve_lowrank_multi_pair_batch(
             torch.Generator().manual_seed(0), ap, bt, cs.NT, cs.NR, cfg)
 
+    if profile_first:
+        print(f"profiled: {cs.device_ms(lambda: bt * 2.0)} ms a launch",
+              flush=True)
     solve()
     torch.cuda.synchronize()
     print("AB " + json.dumps({"ready": True}), flush=True)
@@ -86,14 +92,16 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("base_dir")
     ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--profile-head", action="store_true")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        return worker()
+        return worker(args.profile_head)
 
     dirs = {"base": os.path.abspath(args.base_dir), "head": HEAD_DIR}
     procs = {name: subprocess.Popen(
-        [sys.executable, "-u", os.path.abspath(__file__), d, "--worker"],
+        [sys.executable, "-u", os.path.abspath(__file__), d, "--worker"]
+        + (["--profile-head"] if name == "head" and args.profile_head else []),
         cwd=d, stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
         for name, d in dirs.items()}
     try:

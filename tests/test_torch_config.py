@@ -16,7 +16,7 @@ from twoace_tpu_torch import config as tcfg
 from twoace_tpu_torch import interop
 
 CLASSES = ["AdmmConfig", "SpectralProfileConfig", "ArrayConfig",
-           "ChannelConfig", "MethodFlags"]
+           "ChannelConfig", "PhaseLiftConfig", "TwoStageConfig", "MethodFlags"]
 
 
 @pytest.mark.parametrize("name", CLASSES)

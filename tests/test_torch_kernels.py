@@ -155,11 +155,14 @@ def test_cpu_calls_count_no_launches():
     kernels.pair_matmul(zt, Pair(zt.re.transpose(1, 2), zt.im.transpose(1, 2)))
     axc = torch.complex(*tpair(*ax)).transpose(1, 2).contiguous()
     kernels.fused_prox_dual(axc, torch.tensor(b), axc, torch.tensor(mu[0]))
+    sq = Pair(zt.re[:, :8, :8].contiguous(), zt.im[:, :8, :8].contiguous())
+    kernels.pair_chain_mm(sq, sq)
     assert kernels.launch_counts() == {"fused_prox_dual_t": 0,
                                        "fused_zprox_t": 0,
                                        "fused_infer_admm": 0,
                                        "pair_matmul": 0,
-                                       "fused_prox_dual": 0}
+                                       "fused_prox_dual": 0,
+                                       "pair_chain_mm": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -204,8 +207,8 @@ def test_build_is_keyed_by_the_sources(tmp_path, monkeypatch):
     """nvcc gets the .cu files; the library's name hashes them and the
     headers they include, so a changed header cannot load a stale build."""
     names = sorted(p.name for p in _build.sources())
-    assert names == ["infer_admm.cu", "pair_matmul.cu", "prox_dual.cu",
-                     "prox_dual_rows.cu", "zprox.cu"]
+    assert names == ["chain_mm.cu", "infer_admm.cu", "pair_matmul.cu",
+                     "prox_dual.cu", "prox_dual_rows.cu", "zprox.cu"]
     assert "zprox_core.cuh" in [p.name for p in _build.hashed_files()]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR

@@ -2,12 +2,11 @@
 
 A field-for-field copy of ``twoace_tpu.config``: the dataclasses
 ``AdmmConfig``, ``SpectralProfileConfig``, ``ArrayConfig``,
-``ChannelConfig`` and ``MethodFlags``, the campaign constants and
-:func:`probe_budget_grid`.  It is a copy and not an import because
-importing ``twoace_tpu`` pulls in jax; ``tests/test_torch_config.py``
-holds every default to the JAX package's.  The lifted baselines'
-configs (``PhaseLiftConfig``, ``TwoStageConfig``) wait for the
-baselines.
+``ChannelConfig``, ``PhaseLiftConfig``, ``TwoStageConfig`` and
+``MethodFlags``, the campaign constants and :func:`probe_budget_grid`.
+It is a copy and not an import because importing ``twoace_tpu`` pulls in
+jax; ``tests/test_torch_config.py`` holds every default to the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -130,6 +129,30 @@ class AdmmConfig:
     stage1_maxiter: Optional[int] = None
     #: iteration cap of the second (per-column) pass; None = maxiter
     stage2_maxiter: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class PhaseLiftConfig:
+    """PhaseLift trace-regularized SDP solver parameters
+    (ref: main/src/my_recovery_algorithms/MyPhaseLift.m:83-101)."""
+
+    lam: float = 5e-2        #: trace regularization weight
+    max_iters: int = 4000
+    tol: float = 1e-10
+    restart_every: int = 200
+    #: "fista" = exact lifted FISTA w/ PSD projection; "bm" = Burer-Monteiro
+    method: str = "fista"
+    bm_rank: int = 8         #: factor rank for the Burer-Monteiro path
+
+
+@dataclasses.dataclass(frozen=True)
+class TwoStageConfig:
+    """Two-stage PLOMP/PLGAMP compressive phase-retrieval parameters
+    (ref: main/src/my_recovery_algorithms/My_TwoStage_Recovery.m:75-100)."""
+
+    energy_threshold: float = 0.80   #: SVD energy capture (ref :86)
+    cs_oversample: float = 1.75      #: mCS = round(1.75*s*log(n/s)) (ref :79)
+    phaselift: PhaseLiftConfig = PhaseLiftConfig()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,25 +6,35 @@ framework's ``ADMM_v2`` and ``Recover_Channel``.
   ADMM_v2_nuclear.m:32) with its out-of-range escalation;
 - :func:`recover_channel` / :func:`recover_channel_bf`: testbed H-domain
   recovery over the enabled methods (ref: Recover_Channel.m:1-47,
-  Recover_Channel_bf.m:1-45).
+  Recover_Channel_bf.m:1-45);
+- :func:`recover_sparse`: the simulation tree's z-domain recovery over
+  the baselines (ref: Numerical_Simulation/src/my_recovery_algorithms/
+  MyCPR.m:74-190): PLOMP, PLGAMP and perfect/noisy-phase CS.
 
-The ADMM family is ported.  The lifted baselines (PhaseLift, PLOMP,
-PLGAMP) and ``recover_sparse`` wait for the baselines (ROADMAP.md, the
-modules queue, item 5): their flags raise ``NotImplementedError``.
+The ADMM family is ported.  ``recover_channel``'s lifted methods
+(PhaseLift, PLOMP, PLGAMP with the testbed's scaling chains) and
+``recover_sparse``'s PhaseLift (FISTA), CPRL, PRGAMP and SparsePL raise
+``NotImplementedError`` until they are ported (ROADMAP.md, modules
+queue item 5).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, Optional
 
 import torch
 
-from ..config import AdmmConfig, ArrayConfig, MethodFlags
+from ..config import (AdmmConfig, ArrayConfig, MethodFlags, PhaseLiftConfig,
+                      TwoStageConfig)
 from ..utils.rng import fold_in
+from ..utils.timing import synced_seconds
 from .admm import AdmmResult, solve_lowrank_multi, solve_minl2
 from .cplx import Pair
+from .cpr_baselines import conventional_cs
 from .pair_solver import solve_lowrank_multi_pair
+from .twostage import two_stage_recovery
 
 #: ``MethodFlags`` field -> ADMM_v2 version (ref: Recover_Channel.m:13-31)
 _VERSIONS = {"admm": 0, "admm_lowrank_v1": 1, "admm_lowrank_v2": 2,
@@ -177,4 +187,66 @@ def recover_channel_bf(generator: Optional[torch.Generator], measurements,
                     "Recover_Channel_bf reuses earlier estimates for the "
                     "lifted methods")
             out[name] = recovered[name]
+    return out
+
+
+#: ``recover_sparse`` methods still to port
+_SPARSE_UNPORTED = ("phaselift", "cprl", "prgamp", "sparse_pl")
+
+
+def recover_sparse(generator: Optional[torch.Generator], measurements,
+                   measurement_mat, flags: MethodFlags, s: int,
+                   noise_power: float = 1.0, measurements_perfect=None,
+                   measurements_noisy=None,
+                   pl_cfg: PhaseLiftConfig = PhaseLiftConfig(),
+                   ts_cfg: TwoStageConfig = TwoStageConfig(),
+                   info: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+    """The simulation tree's dispatcher over the sparse (z-domain)
+    baselines (ref: MyCPR.m:74-190): {method name: (P,) z estimate}.
+
+    ``measurements``: (m,) intensities |y|^2; ``measurement_mat``: (m, P)
+    = FW @ AD.  PLOMP and PLGAMP share one two-stage recovery; the
+    perfect- and noisy-phase complex measurements, when given, each get
+    a conventional CS solve.  ``flags.phaselift`` (the z-domain FISTA),
+    ``cprl``, ``prgamp`` and ``sparse_pl`` raise ``NotImplementedError``.
+    ``generator`` is unused: these baselines draw nothing.
+
+    ``info``, when given, receives the two-stage compression size under
+    ``"mcs"`` and, under ``"seconds"``, the host seconds of the two-stage
+    recovery (``"plomp+plgamp"``) and of the CS solves
+    (``"perfect+noisy CS"``), each read once the device has finished.
+    """
+    del generator, pl_cfg
+    for name in _SPARSE_UNPORTED:
+        if getattr(flags, name):
+            raise NotImplementedError(
+                f"recover_sparse's {name} is not ported yet (ROADMAP.md, "
+                "modules queue item 5)")
+    out: Dict[str, torch.Tensor] = {}
+    b2 = torch.as_tensor(measurements).real.reshape(-1)
+    a = torch.as_tensor(measurement_mat)
+    seconds = {}
+    t0 = time.perf_counter()
+    if flags.plomp or flags.plgamp:
+        ts = two_stage_recovery(b2, a, s, noise_power, ts_cfg,
+                                run_plomp=flags.plomp,
+                                run_plgamp=flags.plgamp)
+        if flags.plomp:
+            out["plomp"] = ts.plomp
+        if flags.plgamp:
+            out["plgamp"] = ts.plgamp
+        if info is not None:
+            info["mcs"] = ts.mcs
+            seconds["plomp+plgamp"] = synced_seconds(t0, a.device)
+    t0 = time.perf_counter()
+    if measurements_perfect is not None:
+        out["perfect_phase_cs"] = conventional_cs(
+            measurements_perfect.reshape(-1), a, s, noise_power)
+    if measurements_noisy is not None:
+        out["noisy_phase_cs"] = conventional_cs(
+            measurements_noisy.reshape(-1), a, s, noise_power)
+    if info is not None:
+        if measurements_perfect is not None or measurements_noisy is not None:
+            seconds["perfect+noisy CS"] = synced_seconds(t0, a.device)
+        info["seconds"] = seconds
     return out

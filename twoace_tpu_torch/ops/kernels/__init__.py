@@ -10,7 +10,11 @@ PyTorch version.  Port of ``twoace_tpu.ops.pallas.kernels``:
   GEMM of the per-op loop;
 - :func:`fused_prox_dual` (K5, ``csrc/prox_dual_rows.cu``), the
   row-layout magnitude prox + M-dual of the complex-dtype loop
-  (``ops.admm``).
+  (``ops.admm``);
+- :func:`pair_chain_mm` (K6, ``csrc/chain_mm.cu``), the renormalised
+  chain of batched complex n x n products of
+  ``scripts/bench_pallas_mm.py`` (run by
+  ``scripts/torch_bench_pallas_mm.py``).
 
 Each wrapper counts its launches in a plain integer attribute
 ``.launches``; a CPU tensor takes the plain version and counts nothing.
@@ -21,9 +25,10 @@ from .zprox import fused_zprox_t, zprox_t_plain  # noqa: F401
 from .pair_matmul import pair_matmul, pair_matmul_plain  # noqa: F401
 from .infer_admm import fused_infer_admm, infer_admm_plain  # noqa: F401
 from .prox_dual_rows import fused_prox_dual, prox_dual_rows_plain  # noqa: F401
+from .chain_mm import pair_chain_mm, pair_chain_mm_plain  # noqa: F401
 
 KERNELS = (fused_prox_dual_t, fused_zprox_t, fused_infer_admm, pair_matmul,
-           fused_prox_dual)
+           fused_prox_dual, pair_chain_mm)
 
 
 def reset_launch_counts() -> None:

@@ -40,6 +40,7 @@ SIGNATURES = {
     "twoace_infer_admm": [_P] * 21 + [_I] * 11 + [_F] * 3 + [_P],
     "twoace_pair_matmul": [_P] * 6 + [_I] * 4 + [_P],
     "twoace_prox_dual_rows": [_P] * 6 + [_L, _I, _I, _I, _P],
+    "twoace_chain_mm": [_P] * 6 + [_I, _I, _I, _P],
 }
 
 _lib = None

@@ -1,7 +1,7 @@
 """End-to-end entry points (port of ``twoace_tpu.pipeline``).
 
-Ported so far: ``mobility`` and ``recovery``.  The simulation and testbed
-pipelines are still to port.
+Ported so far: ``mobility``, ``recovery`` and the Vs_M / Vs_SNR parts of
+``simulation``.  The testbed pipeline is still to port.
 """
 
 from .mobility import (  # noqa: F401
@@ -21,4 +21,10 @@ from .recovery import (  # noqa: F401
     recover_campaign,
     recover_multiresolution,
     recover_warm_sweep,
+)
+from .simulation import (  # noqa: F401
+    SimulationConfig,
+    SweepResult,
+    sweep_measurements,
+    sweep_snr,
 )

@@ -6,18 +6,24 @@ amplitude mask, and functions that compile them into complex beamforming
 rows and kron probe matrices.  The bits are drawn from an explicit
 ``torch.Generator`` on the CPU; the map from bits to rows is a function of
 its own (:func:`phase_rows`), so tests can hand both packages the same
-bits.  The directional, multi-resolution, sweep and ACO families are still
-to port.
+bits.  Of the directional family, the angle-uniform beams
+(:func:`directional_beams_angular`) are ported; the spatial, random and
+region beams, the multi-resolution, sweep and ACO families are still to
+port.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..config import ArrayConfig
 from ..interop import resolve_device
+from ..models.steering import steering_vector
+from ..utils.metrics import quantize_ps
 
 
 def phase_rows(bits, phase_bit: int = 2, amp=None, normalize_by=None):
@@ -107,3 +113,23 @@ def kron_probe_rows(tx_rows, rx_rows, interleave: bool = False):
     if interleave:
         cb = cb.transpose(0, 1)
     return cb.reshape(rounds * sectors, nt_ * nr_)
+
+
+def directional_beams_angular(mt: int, mr: int, cfg: ArrayConfig,
+                              aod_range: Tuple[float, float],
+                              aoa_range: Tuple[float, float], device="cuda"):
+    """Directional beams uniform in angle: Mt / Mr sector centres, 2-bit
+    quantized.  Returns ``(F (nt, mt), W (nr, mr))`` complex64 on
+    ``device``.  ref: Directional_Beam_Angular.m:65-86.
+    """
+    dev = resolve_device(device)
+
+    def centers(rng, m):
+        edges = np.linspace(rng[0], rng[1], m + 1)
+        return torch.as_tensor((edges[:-1] + edges[1:]) / 2.0, device=dev)
+
+    f = steering_vector(torch.sin(torch.deg2rad(centers(aod_range, mt))),
+                        cfg.nt, cfg.k_d).T
+    w = steering_vector(torch.sin(torch.deg2rad(centers(aoa_range, mr))),
+                        cfg.nr, cfg.k_d).T
+    return quantize_ps(f, cfg.phase_bit), quantize_ps(w, cfg.phase_bit)
