@@ -47,11 +47,16 @@ runs ``scripts/torch_bench_pallas_mm.py``'s body.
 
 Phase 2 also holds K4 (the per-op loop's pair GEMM) against its plain
 version at the batch solver's, the anchored refine's (one row: the warm
-trackers' m 80 and 256, phase 4's m 1024) and a ragged shape, and K5 at
+trackers' m 80 and 256, phase 4's m 1024) and a ragged shape for each
+route, and both against the complex128 product (K4's error at most
+K4_C128_FACTOR times the plain version's), with the route each shape
+takes, the 3xTF32 and float32 bounds and K4's roofline share; and K5 at
 the campaign's, the refine's and a tracker window's shapes, a ragged m
 and complex128, and K6 at the chain benchmark's batch and a ragged
-one.  Phase 2 also reads K1's, K5's and K6's device time a launch from
-the profiler beside their CUDA-event times.  Each path (the batch solve, the single solves, the
+one.  Phase 2 also reads K1's, K4's, K5's and K6's (and complex64
+``torch.matmul``'s, beside K4) device time a launch from the profiler
+beside their CUDA-event times.  Phases 3, 4 and 5 print K4's launches
+by route.  Each path (the batch solve, the single solves, the
 refine, each tracker, each part of the campaign) is driven with the
 launch counts set to 0 just before it and read just after, and fails if
 a kernel it runs was never launched.
@@ -84,6 +89,8 @@ from twoace_tpu_torch.ops.kernels import (  # noqa: E402
     pair_chain_mm_plain, pair_matmul, pair_matmul_plain,
     prox_dual_rows_plain, prox_dual_t_plain, reset_launch_counts,
     zprox_t_plain)
+from twoace_tpu_torch.ops.kernels.pair_matmul import (  # noqa: E402
+    route as k4_route)
 from twoace_tpu_torch.ops.pair_solver import (  # noqa: E402
     no_tf32, refine_lowrank_pair, solve_lowrank_multi_pair,
     solve_lowrank_multi_pair_batch)
@@ -118,20 +125,28 @@ K3_TRIPS = 30
 K3_WARM = 50
 K3_MU0 = 0.4
 SINGLE_REPS = 10
-#: K4 against its plain version: max |difference| over max |plain|.
-#: Measured 0 (bit-identical) at the batch shapes on an H100 80GB HBM3
-#: at 700 W: both sum K in order with FMAs.
+#: K4 against its plain version: max |difference| over max |plain|.  The
+#: two are no longer bit-identical: the tensor-core route's 3xTF32
+#: products accumulate in the tensor cores' float32, in another order
+#: than the plain version's FMA chain, and the split-K route sums K in
+#: slices.
 K4_RTOL = 1e-5
+#: K4's error against the complex128 product (max |error| over max
+#: |exact|) may be at most this many times the plain version's: the
+#: margin for the tensor cores' float32 accumulation, which rounds
+#: otherwise than an FMA chain
+K4_C128_FACTOR = 3.0
 #: K4's shapes, (G, M, K, N): the batch solver's three products (G = 3
-#: restarts, M = 64 instances x r 20); the anchored refine's, whose seed
-#: is one vector (G 1, M = r 1, n 256) at the warm trackers' windows
-#: (m 80, 256) and phase 4's m 1024; and a ragged one
+#: restarts, M = 64 instances x r 20; the tensor-core route); the
+#: anchored refine's, whose seed is one vector (G 1, M = r 1, n 256) at
+#: the warm trackers' windows (m 80, 256) and phase 4's m 1024 (the
+#: split-K route); and a ragged one for each route
 K4_SHAPES = [(RESTARTS, SOLVE_BATCH * R, M_TRAIN, N),
              (RESTARTS, SOLVE_BATCH * R, N, N),
              (RESTARTS, SOLVE_BATCH * R, N, M_TRAIN),
              *dict.fromkeys((1, 1, k, n) for m in (80, 256, M)
                             for k, n in ((m, N), (N, N), (N, m))),
-             (2, 70, 97, 51)]
+             (2, 70, 97, 51), (2, 3, 97, 51)]
 
 #: K5 against its plain version: max |difference| over max |plain|.  The
 #: two round every step alike except the order of the row sum.
@@ -186,9 +201,10 @@ VSM_SIDE_TRIALS = 2
 VSSNR_M, VSSNR_SNR = 529, 10.0
 
 #: H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 flop/s
-#: outside the tensor cores
+#: outside the tensor cores, dense TF32 flop/s on the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 
 
 def phase0_device():
@@ -248,24 +264,40 @@ def device_events(prof):
     return out
 
 
-def device_ms(fn, reps=20):
+def device_ms(*fns, reps=20, owner=None):
     """Mean device milliseconds per call of ``fn()`` under torch.profiler:
     its kernels' own time, without the host's cost of the call that
     ``cuda_ms``'s events take in when a wrapper outlasts its kernel.
-    None if the profiler saw no kernel."""
+    A session is kept only if it saw ``reps`` times the kernels of one
+    profiled call (the profiler now and then drops events, which reads
+    as a time far too short); None if no session of three did.
+    Several functions share the sessions, each called in turn, when
+    ``owner(name)`` gives the index of the one a kernel of that name
+    belongs to; the result is then a tuple, one time a function."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):                  # the profiler now and then sees none
+    def session(n):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
+            for fn in fns:
+                for _ in range(n):
+                    fn()
             torch.cuda.synchronize()
-        total = sum(ms for ms, _ in device_events(prof).values())
-        if total > 0:
-            return total / reps
-    return None
+        parts = [[0, 0.0] for _ in fns]
+        for name, (ms, count) in device_events(prof).items():
+            part = parts[owner(name) if owner else 0]
+            part[0] += count
+            part[1] += ms
+        return parts
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        once, many = session(1), session(reps)
+        if all(c1 and c == c1 * reps for (c1, _), (c, _) in zip(once, many)):
+            out = tuple(ms / reps for _, ms in many)
+            return out if owner else out[0]
+    return (None,) * len(fns) if owner else None
 
 
 def fmt_ms(ms):
@@ -596,10 +628,14 @@ def phase2_k3():
 
 
 def phase2_k4():
-    """K4 against its plain version (TF32 off) at K4_SHAPES, with the
-    times of K4, the plain version and one complex64 ``torch.matmul`` on
-    tensors built beforehand, beside the bound: 6 M N K G flops at the
-    float32 rate against each operand read and the output written once."""
+    """K4 against its plain version (TF32 off) at K4_SHAPES, both against
+    the complex128 product, with the route the shape takes, the times of
+    K4 (events and profiler device time), the plain version and one
+    complex64 ``torch.matmul`` on tensors built beforehand, beside the
+    bounds: each operand read and the output written once, and 6 M N K G
+    flops either as 3xTF32 on the tensor cores (three TF32 products each,
+    the bound the roofline share is taken against) or on the float32
+    CUDA cores."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     out = {}
     with no_tf32():
@@ -607,6 +643,7 @@ def phase2_k4():
             a, b = (Pair(*(torch.randn(g, rows, cols, generator=gen,
                                        device="cuda") for _ in range(2)))
                     for rows, cols in ((m, k), (k, n)))
+            which = k4_route(g, m, k, n)
             got = pair_matmul(a, b)
             want = pair_matmul_plain(a, b)
             torch.cuda.synchronize()
@@ -616,18 +653,46 @@ def phase2_k4():
                 raise RuntimeError(f"K4 disagrees with its plain version at "
                                    f"{(g, m, k, n)}: {rel:.3e} > {K4_RTOL}")
             ac, bc = torch.complex(*a), torch.complex(*b)
+            exact = ac.to(torch.complex128) @ bc.to(torch.complex128)
+            scale = float(exact.abs().max())
+            err_k4, err_plain = (
+                float((torch.complex(*p).to(torch.complex128) - exact)
+                      .abs().max()) / scale for p in (got, want))
+            if not err_k4 <= K4_C128_FACTOR * err_plain:
+                raise RuntimeError(
+                    f"K4's error against complex128 at {(g, m, k, n)}, "
+                    f"{err_k4:.3e}, is above {K4_C128_FACTOR} x the plain "
+                    f"version's {err_plain:.3e}")
             ms = cuda_ms(lambda: pair_matmul(a, b))
             plain = cuda_ms(lambda: pair_matmul_plain(a, b))
             lib = cuda_ms(lambda: torch.matmul(ac, bc))
-            bnd = bound(nbytes(a, b, got), 6 * g * m * k * n)
-            print(f"[2 K4 pair_matmul] ({g}, {m}, {k}) @ ({g}, {k}, {n}): "
-                  f"max rel err {rel:.3e} (tol {K4_RTOL}) | kernel {ms:.4f} "
-                  f"ms | plain {plain:.4f} ms | complex64 torch.matmul "
-                  f"{lib:.4f} ms | bound {bnd['bound_ms']:.4f} ms "
-                  f"({bnd['bound_by']})", flush=True)
+            # K4's kernels are pair_mm_*; the rest are the library's
+            dev, lib_dev = device_ms(
+                lambda: pair_matmul(a, b), lambda: torch.matmul(ac, bc),
+                owner=lambda name: 0 if "pair_mm_" in name else 1)
+            flops = 6 * g * m * k * n
+            t_bytes = nbytes(a, b, got) / PEAK_BYTES * 1e3
+            t_tf32 = 3 * flops / PEAK_TF32 * 1e3
+            t_fp32 = flops / PEAK_FP32 * 1e3
+            bnd = (dict(bound_ms=t_bytes, bound_by="bytes")
+                   if t_bytes >= t_tf32
+                   else dict(bound_ms=t_tf32, bound_by="operations"))
+            share = (f"{100 * bnd['bound_ms'] / dev:.1f}% of the "
+                     f"{'3xTF32' if bnd['bound_by'] == 'operations' else 'bytes'}"
+                     f" bound" if dev else "not measured")
+            print(f"[2 K4 pair_matmul] ({g}, {m}, {k}) @ ({g}, {k}, {n}), "
+                  f"route {which}: max rel err {rel:.3e} (tol {K4_RTOL}) | "
+                  f"vs complex128: K4 {err_k4:.3e}, plain {err_plain:.3e} "
+                  f"(K4 at most {K4_C128_FACTOR:g}x) | kernel {ms:.4f} ms "
+                  f"(events), device {fmt_ms(dev)} per launch (profiler) | "
+                  f"plain {plain:.4f} ms | complex64 torch.matmul {lib:.4f} "
+                  f"ms (events), device {fmt_ms(lib_dev)} | bounds: 3xTF32 "
+                  f"{t_tf32:.6f} ms, FP32 {t_fp32:.6f} ms, bytes "
+                  f"{t_bytes:.6f} ms | roofline share {share}", flush=True)
             out[(g, m, k, n)] = dict(
-                max_abs_err=max_err(got, want), ms=ms, plain_ms=plain, **bnd,
-                library_ms=lib)
+                max_abs_err=max_err(got, want), ms=ms, plain_ms=plain,
+                device_ms=dev, **bnd, library_ms=lib,
+                library_device_ms=lib_dev)
     return out[K4_SHAPES[0]]
 
 
@@ -678,6 +743,7 @@ def phase3_slice():
     stop.record()
     torch.cuda.synchronize()
     launches = launch_counts()
+    routes = dict(pair_matmul.routes)
     secs = start.elapsed_time(stop) / 1e3
 
     if res.x.re.device.type != "cuda":
@@ -697,7 +763,7 @@ def phase3_slice():
           f"| {SOLVE_BATCH / secs:.2f} rec/s | {iters} iters, "
           f"{iters / secs:.1f} iter/s | median NMSE {med:.2f} dB | worst "
           f"{float(nmse_db.max()):.2f} dB | min quality {qmin:.6f} | "
-          f"launches {launches}", flush=True)
+          f"launches {launches} | K4 by route {routes}", flush=True)
     if med > -60.0:
         raise RuntimeError(f"median NMSE {med:.2f} dB above -60 dB")
     if qmin < 0.98:
@@ -837,11 +903,12 @@ def phase4_single():
     torch.cuda.synchronize()
     ref_ms = (time.perf_counter() - t0) * 1e3
     counts = launch_counts()
+    routes = dict(pair_matmul.routes)
     ref_db = nmse_db(ref.x, two["x_true"])
     print(f"[4 refine] refine_lowrank_pair anchor_weight 0.5 from the "
           f"two-path result: {ref_ms:.2f} ms | iters {int(ref.iters)} | "
           f"NMSE {ref_db:.2f} dB | quality {float(ref.quality):.6f} | "
-          f"launches {counts}", flush=True)
+          f"launches {counts} | K4 by route {routes}", flush=True)
     require_launched(counts, ("fused_prox_dual_t", "fused_zprox_t",
                               "pair_matmul"), "the anchored refine")
     if ref_db > -60.0 or float(ref.quality) < 0.98:
@@ -971,6 +1038,7 @@ def run_tracker(name, solver, rows, amps, vhs, p, mob):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    routes = dict(pair_matmul.routes)
 
     if not np.isfinite(trace.estimates).all():
         raise RuntimeError(f"{name}: non-finite estimate")
@@ -988,7 +1056,7 @@ def run_tracker(name, solver, rows, amps, vhs, p, mob):
           f"{warm_s:.2f} s) | tracked NMSE median first quarter "
           f"{out['first']:.2f} dB, last quarter {out['last']:.2f} dB | "
           f"reset branch {out['reset']}, growth branch {out['growth']} | "
-          f"launches {counts}", flush=True)
+          f"launches {counts} | K4 by route {routes}", flush=True)
     profile_call(f"[5 profile] {name}, last window", timed.replay)
     return out
 

@@ -3,8 +3,11 @@
 On the CPU the wrapper runs its plain PyTorch version, which is held
 against the Pallas kernel it replaces (``twoace_tpu.ops.pallas.pair_matmul``
 in interpret mode, as ``tests/test_pallas.py`` runs it), per g of a batch,
-and against complex128 numpy.  The CUDA kernel is held against the plain
-version on the card by the ``gpu``-marked test (and by chip_smoke.py).
+and against complex128 numpy.  The tensor-core route's 3xTF32 arithmetic
+is held here through its plain torch emulation, and the route a shape
+takes is a pure function of the shape.  The CUDA kernel is held against
+the plain version on the card by the ``gpu``-marked test (and by
+chip_smoke.py).
 """
 
 import importlib
@@ -83,23 +86,102 @@ def test_wrapper_checks_reject_what_the_kernel_does_not_take():
     assert kernels.pair_matmul.launches == 0         # the CPU runs the plain
 
 
+def test_round_tf32_keeps_ten_mantissa_bits():
+    """cvt.rna.tf32.f32: the low 13 bits cleared, within half a TF32 ulp
+    (2^-11 relative), ties rounded away from zero."""
+    x = torch.tensor(np.random.default_rng(3).normal(size=4096)
+                     .astype(np.float32))
+    r = k4.round_tf32(x)
+    assert int((r.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert float(((r - x).abs() / x.abs()).max()) <= 2.0 ** -11
+    one = 1.0 + 2.0 ** -10                    # the next TF32 after 1
+    ties = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12,
+                         1 + 3 * 2.0 ** -12])
+    assert k4.round_tf32(ties).tolist() == [one, -one, 1.0, one]
+
+
+@pytest.mark.parametrize("karatsuba", [True, False])
+@pytest.mark.parametrize("k", [972, 256])
+def test_emulated_3xtf32_keeps_float32_accuracy(k, karatsuba):
+    """At the solver's depths (K 972, 256), the tensor-core route's 3xTF32
+    arithmetic stays within chip_smoke.py's K4_RTOL (1e-5, max |error|
+    over max |reference|) of the complex128 product, in both complex
+    forms; plain TF32 (one big*big term) does not, so the split is
+    needed."""
+    a, b = _operands(1, 64, k, 32, seed=4)
+    exact = ((a[0] + 1j * a[1]).astype(np.complex128)
+             @ (b[0] + 1j * b[1]).astype(np.complex128))
+    scale = np.abs(exact).max()
+
+    def rel(terms):
+        got = np_pair(k4.pair_matmul_tf32_emulated(
+            tpair(*a), tpair(*b), terms=terms, karatsuba=karatsuba))
+        return np.abs(got[0] + 1j * got[1] - exact).max() / scale
+
+    assert rel(3) <= 1e-5
+    assert rel(1) > 1e-4
+
+
+@pytest.mark.parametrize("shape,want", [
+    # chip_smoke.py's K4_SHAPES: the batch solver's three products
+    ((3, 1280, 972, 256), "tc"), ((3, 1280, 256, 256), "tc"),
+    ((3, 1280, 256, 972), "tc"),
+    # the anchored refine's one-row products
+    ((1, 1, 80, 256), "rows"), ((1, 1, 256, 256), "rows"),
+    ((1, 1, 256, 80), "rows"), ((1, 1, 1024, 256), "rows"),
+    ((1, 1, 256, 1024), "rows"),
+    # ragged, and the edges of the threshold
+    ((2, 70, 97, 51), "tc"), ((2, 3, 97, 51), "rows"),
+    ((1, k4.ROWS_MAX_M, 256, 256), "rows"),
+    ((1, k4.ROWS_MAX_M + 1, 256, 256), "tc")])
+def test_route_is_a_function_of_the_shape(shape, want):
+    assert k4.route(*shape) == want
+    g, m, k, _ = shape
+    y, z = k4._grid_yz(want, g, m, k)
+    if want == "tc":
+        assert (y, z) == (-(-m // 64), g)
+    else:
+        assert 1 <= y == k4.ksplit(k) <= 8
+        assert z == g * -(-m // k4._rows_mr(m))
+
+
+def test_route_grids_and_counts():
+    """The split-K grid's z axis is G times the row blocks: the wrapper
+    raises above 65535; resetting the launch counts resets each route's."""
+    big = Pair(torch.zeros(65536, 1, 1), torch.zeros(65536, 1, 1))
+    with pytest.raises(ValueError, match="rows route"):
+        k4._check(big, big)
+    assert [k4.ksplit(k) for k in (1, 80, 256, 1024, 10 ** 6)] == [
+        1, 2, 4, 8, 8]
+    kernels.pair_matmul.routes["rows"] = 5
+    kernels.reset_launch_counts()
+    assert kernels.pair_matmul.routes == {"tc": 0, "rows": 0}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [
-    (3, 1280, 972, 256),
+    # the batch solver's three products
+    (3, 1280, 972, 256), (3, 1280, 256, 256), (3, 1280, 256, 972),
     # the anchored refine's: one row, the warm tracker's m 80 and phase 4's
     # m 1024 against n 256
-    (1, 1, 80, 256), (1, 1, 256, 80), (1, 1, 256, 1024),
-    (2, 70, 97, 51)])
+    (1, 1, 80, 256), (1, 1, 256, 256), (1, 1, 256, 80), (1, 1, 1024, 256),
+    (1, 1, 256, 1024),
+    # ragged for both routes
+    (2, 70, 97, 51), (2, 3, 97, 51)])
 def test_pair_matmul_kernel_matches_plain_on_card(shape):
     """K4 against its plain version with TF32 off: max |K4 - plain| over
-    max |plain| within 1e-5 (chip_smoke.py's tolerance)."""
+    max |plain| within 1e-5 (chip_smoke.py's tolerance), through the
+    route the shape picks."""
     require_cuda()
     a, b = (tpair(*p, device="cuda") for p in _operands(*shape, seed=2))
+    which = k4.route(*shape)
     with no_tf32():
         before = kernels.pair_matmul.launches
+        routed = kernels.pair_matmul.routes[which]
         got = kernels.pair_matmul(a, b)
         torch.cuda.synchronize()
         assert kernels.pair_matmul.launches == before + 1
+        assert kernels.pair_matmul.routes[which] == routed + 1
         want = kernels.pair_matmul_plain(a, b)
     for g, w in zip(got, want):
         assert float((g - w).abs().max() / w.abs().max()) <= 1e-5

@@ -7,7 +7,8 @@ PyTorch version.  Port of ``twoace_tpu.ops.pallas.kernels``:
 - :func:`fused_infer_admm` (K3, ``csrc/infer_admm.cu``), the whole
   InferADMM loop, port of ``twoace_tpu.ops.pallas.solver_kernel``;
 - :func:`pair_matmul` (K4, ``csrc/pair_matmul.cu``), the batched pair
-  GEMM of the per-op loop;
+  GEMM of the per-op loop: 3xTF32 tensor-core tiles, or split-K for
+  the one-row products;
 - :func:`fused_prox_dual` (K5, ``csrc/prox_dual_rows.cu``), the
   row-layout magnitude prox + M-dual of the complex-dtype loop
   (``ops.admm``);
@@ -17,7 +18,8 @@ PyTorch version.  Port of ``twoace_tpu.ops.pallas.kernels``:
   ``scripts/torch_bench_pallas_mm.py``).
 
 Each wrapper counts its launches in a plain integer attribute
-``.launches``; a CPU tensor takes the plain version and counts nothing.
+``.launches`` (K4 also those of each route, in ``pair_matmul.routes``); a
+CPU tensor takes the plain version and counts nothing.
 """
 
 from .prox_dual import fused_prox_dual_t, prox_dual_t_plain  # noqa: F401
@@ -34,6 +36,7 @@ KERNELS = (fused_prox_dual_t, fused_zprox_t, fused_infer_admm, pair_matmul,
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    pair_matmul.routes = dict.fromkeys(pair_matmul.routes, 0)
 
 
 def launch_counts() -> dict:
