@@ -124,6 +124,8 @@ K3_RTOL = 1e-4
 K3_TRIPS = 30
 K3_WARM = 50
 K3_MU0 = 0.4
+#: K3's m in phase 2: the single solve's train split and full data
+K3_MS = (M_TRAIN, M)
 SINGLE_REPS = 10
 #: K4 against its plain version: max |difference| over max |plain|.  The
 #: two are no longer bit-identical: the tensor-core route's 3xTF32
@@ -557,44 +559,54 @@ def cold_divergence(args, loop, trips=10):
           flush=True)
 
 
+def k3_cases(m, lanes=RESTARTS, seed=5):
+    """K3's inputs at m: ``lanes`` lanes (one per restart), r R, 16x16,
+    bench.py's codebook rows normalised as the solver does, the full-data
+    ladder, the spectral init run K3_WARM first-pass trips (zero
+    tolerances) to a warm lane state; then both passes from there at mu0
+    K3_MU0.  Yields ``(label, args, kw)`` for each pass, with zero
+    tolerances so every trip of K3_TRIPS runs."""
+    a, b, _ = build_solve_problem(seed=seed, batch=lanes, m=m)
+    ap = Pair(*(torch.as_tensor(np.ascontiguousarray(v), dtype=torch.float32,
+                                device="cuda")[None].expand(lanes, m, N)
+                .contiguous() for v in (a.real, a.imag)))
+    bt = torch.as_tensor(b, dtype=torch.float32, device="cuda")[:, None]
+    bt = bt / torch.linalg.vector_norm(bt, dim=-1, keepdim=True)
+    lad = profile_ladder_arrays(NT, NR, m, N, False, device="cuda")
+    lad = LadderArrays(lad.ranks.expand(lanes, -1).contiguous(),
+                       lad.fracs.expand(lanes, -1).contiguous())
+    lad3 = LadderArrays(lad.ranks[:, None], lad.fracs[:, None])
+    u = pair_solver.precompute_u_pair(ap)
+    x0 = pair_solver.spectral_initialize_pair(
+        ap, bt, R, torch.Generator().manual_seed(seed))
+
+    def prepared(x, sbr, mu0):
+        y0, z0, v0 = pair_solver.admm_init_pair(
+            ap, bt, x, scale_by_row=sbr, nt=NT, nr=NR, ladder=lad3)
+        c = lambda p: Pair(p.re.contiguous(), p.im.contiguous())
+        return [ap, bt, u, c(y0), c(z0), c(v0),
+                torch.full((lanes, 1), mu0, device="cuda"), lad]
+
+    loop = dict(nt=NT, nr=NR, rho=1.03, tol_rel=0.0, tol_abs=0.0)
+    cold = prepared(x0, True, 1e-3)
+    if m == M_TRAIN and lanes == RESTARTS:
+        cold_divergence(cold, loop)
+    xw = fused_infer_admm(*cold, scale_by_row=True, maxiter=K3_WARM,
+                          **loop)[0]
+    for sbr in (True, False):
+        x = xw if sbr else pair_solver._orthonormalize_cols_t(xw)
+        yield (f"lanes {lanes} r {R} 16x16 m {m} scale_by_row {sbr}",
+               prepared(x, sbr, K3_MU0),
+               dict(scale_by_row=sbr, maxiter=K3_TRIPS, **loop))
+
+
 def phase2_k3():
-    """K3 on 3 lanes (one per restart), r 20, 16x16, at the train split's
-    m 972 and the full m 1024, both passes, K3_TRIPS trips with zero
-    tolerances so every trip runs, from a warm lane state."""
-    lanes = RESTARTS
+    """K3 against its plain version at K3_MS: 3 lanes (one per restart),
+    r 20, 16x16, both passes, K3_TRIPS trips with zero tolerances so
+    every trip runs, from a warm lane state (``k3_cases``)."""
     out = {}
-    for m in (M_TRAIN, M):
-        a, b, _ = build_solve_problem(seed=5, batch=lanes, m=m)
-        ap = Pair(*(torch.as_tensor(np.ascontiguousarray(v), dtype=torch.float32,
-                                    device="cuda")[None].expand(lanes, m, N)
-                    .contiguous() for v in (a.real, a.imag)))
-        bt = torch.as_tensor(b, dtype=torch.float32, device="cuda")[:, None]
-        bt = bt / torch.linalg.vector_norm(bt, dim=-1, keepdim=True)
-        lad = profile_ladder_arrays(NT, NR, m, N, False, device="cuda")
-        lad = LadderArrays(lad.ranks.expand(lanes, -1).contiguous(),
-                           lad.fracs.expand(lanes, -1).contiguous())
-        lad3 = LadderArrays(lad.ranks[:, None], lad.fracs[:, None])
-        u = pair_solver.precompute_u_pair(ap)
-        x0 = pair_solver.spectral_initialize_pair(
-            ap, bt, R, torch.Generator().manual_seed(5))
-
-        def prepared(x, sbr, mu0):
-            y0, z0, v0 = pair_solver.admm_init_pair(
-                ap, bt, x, scale_by_row=sbr, nt=NT, nr=NR, ladder=lad3)
-            c = lambda p: Pair(p.re.contiguous(), p.im.contiguous())
-            return [ap, bt, u, c(y0), c(z0), c(v0),
-                    torch.full((lanes, 1), mu0, device="cuda"), lad]
-
-        loop = dict(nt=NT, nr=NR, rho=1.03, tol_rel=0.0, tol_abs=0.0)
-        cold = prepared(x0, True, 1e-3)
-        if m == M_TRAIN:
-            cold_divergence(cold, loop)
-        xw = fused_infer_admm(*cold, scale_by_row=True, maxiter=K3_WARM,
-                              **loop)[0]
-        for sbr in (True, False):
-            x = xw if sbr else pair_solver._orthonormalize_cols_t(xw)
-            args = prepared(x, sbr, K3_MU0)
-            kw = dict(scale_by_row=sbr, maxiter=K3_TRIPS, **loop)
+    for m in K3_MS:
+        for label, args, kw in k3_cases(m):
             got = fused_infer_admm(*args, **kw)
             want = infer_admm_plain(*args, **kw)
             torch.cuda.synchronize()
@@ -609,21 +621,22 @@ def phase2_k3():
             rel = rel_err(got, want)
             err = max_err([*got[0], *got[1]], [*want[0], *want[1]])
             if not rel <= K3_RTOL:
-                raise RuntimeError(f"K3 disagrees with its plain version: "
-                                   f"relative error {rel:.3e} > {K3_RTOL}")
+                raise RuntimeError(f"K3 disagrees with its plain version at "
+                                   f"{label}: relative error {rel:.3e} > "
+                                   f"{K3_RTOL}")
             ms = cuda_ms(lambda: fused_infer_admm(*args, **kw), reps=5)
             plain = cuda_ms(lambda: infer_admm_plain(*args, **kw), reps=2)
             flops = k3_flops(got[3], R, m, N)
-            bnd = bound(nbytes(*args[:7], args[7], *got[:2]) + 8 * lanes,
-                        flops)
-            print(f"[2 K3 fused_infer_admm] lanes {lanes} r {R} 16x16 m {m} "
-                  f"scale_by_row {sbr} {K3_TRIPS} trips (warm state, mu0 "
-                  f"{K3_MU0}): max rel err {rel:.3e} (tol {K3_RTOL}), max "
-                  f"abs err {err:.3e} | kernel {ms:.4f} ms | plain "
-                  f"{plain:.4f} ms | bound {bnd['bound_ms']:.4f} ms "
+            n_bytes = nbytes(*args[:7], args[7], *got[:2]) + 8 * len(got[3])
+            bnd = bound(n_bytes, flops)
+            print(f"[2 K3 fused_infer_admm] {label}, {K3_TRIPS} trips (warm "
+                  f"state, mu0 {K3_MU0}): max rel err {rel:.3e} (tol "
+                  f"{K3_RTOL}), max abs err {err:.3e} | kernel {ms:.4f} ms | "
+                  f"plain {plain:.4f} ms | bound {bnd['bound_ms']:.4f} ms "
                   f"({bnd['bound_by']})", flush=True)
-            out[(m, sbr)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                 **bnd, library_ms=None)
+            out[(m, kw["scale_by_row"])] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, **bnd,
+                library_ms=None)
     return out[(M_TRAIN, True)]
 
 

@@ -45,14 +45,14 @@ CROSS_M = (1, 2, 4, 8, 16, 32, 64, 128)
 CROSS_KN = ((1024, 256), (256, 1024), (256, 256))
 
 
-def ptxas_report():
-    """nvcc -Xptxas -v of pair_matmul.cu: one line per kernel; and the
-    SASS opcode counts of each kernel (cuobjdump -sass)."""
-    src = os.path.join(_build.CSRC, "pair_matmul.cu")
+def ptxas_report(name="pair_matmul.cu"):
+    """nvcc -Xptxas -v of one source of csrc/: one line per kernel; and
+    the SASS opcode counts of each kernel (cuobjdump -sass)."""
+    src = os.path.join(_build.CSRC, name)
     flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
     bindir = os.path.dirname(_build.nvcc())
     with tempfile.TemporaryDirectory() as tmp:
-        obj = os.path.join(tmp, "k4.o")
+        obj = os.path.join(tmp, "kernels.o")
         proc = subprocess.run(
             [_build.nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", obj, src],
             capture_output=True, text=True, check=True, timeout=600)

@@ -144,6 +144,48 @@ __device__ __forceinline__ void gemm_cols(int r, int K, int j0, int j1,
   }
 }
 
+// ---- phase timer (built only with -DTWOACE_K3_PHASE_TIMER, by
+// scripts/torch_k3_phases.py): thread 0 of lane 0's CTA 0 stamps
+// %globaltimer at each phase's end and sums the nanoseconds per slot; the
+// time it spends in cluster barriers goes to its own slot.
+enum PhaseSlot { T_SETUP, T_A, T_B, T_B_GRAM, T_C, T_D_GEMM, T_D_GRAM,
+                 T_D_ZPROX, T_D_APPLY, T_E, T_BARRIER, T_TRIPS, T_SLOTS };
+#ifdef TWOACE_K3_PHASE_TIMER
+__device__ unsigned long long g_k3_phase[T_SLOTS];
+struct PhaseTimer {
+  unsigned long long acc[T_SLOTS], last;
+  bool on;
+  __device__ static unsigned long long now() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+  }
+  __device__ void start() {
+    on = blockIdx.x == 0 && threadIdx.x == 0;
+    for (int s = 0; s < T_SLOTS; ++s) acc[s] = 0;
+    last = now();
+  }
+  __device__ void stamp(int slot) {
+    if (!on) return;
+    const unsigned long long t = now();
+    acc[slot] += t - last;
+    last = t;
+  }
+  __device__ void finish(int trips) {
+    if (!on) return;
+    acc[T_TRIPS] = (unsigned long long)trips;
+    for (int s = 0; s < T_SLOTS; ++s) g_k3_phase[s] = acc[s];
+  }
+};
+#define PT_START() PhaseTimer pt; pt.start()
+#define PT_STAMP(slot) pt.stamp(slot)
+#define PT_FINISH(trips) pt.finish(trips)
+#else
+#define PT_START()
+#define PT_STAMP(slot)
+#define PT_FINISH(trips)
+#endif
+
 struct Params {
   const float *a_re, *a_im, *u_re, *u_im, *b, *y0_re, *y0_im, *z0_re, *z0_im,
       *v0_re, *v0_im, *mu0, *ranks, *fracs;
@@ -157,6 +199,7 @@ struct Params {
 
 __global__ void __launch_bounds__(kThreads)
 infer_admm_kernel(const Params P) {
+  PT_START();
   cg::cluster_group cluster = cg::this_cluster();
   const int c = (int)cluster.block_rank();
   const int lane = blockIdx.x / kC;
@@ -236,7 +279,9 @@ infer_admm_kernel(const Params P) {
   const float t_comb0 = (float)(P.tol_abs * sqrt((double)(m + n) * r * 2));
   const float inv_sqrt_r = (float)(1.0 / sqrt((double)r));
   auto nothing = [](int, int) {};
+  PT_STAMP(T_SETUP);
   cluster.sync();
+  PT_STAMP(T_BARRIER);
 
   // A^H Y of the initial Y, own n columns
   gemm_cols<false>(
@@ -248,6 +293,7 @@ infer_admm_kernel(const Params P) {
       [&](int k, int j, int, float2 v) { const long long o = (long long)k * n + j;
                                     st(Tr + o, v.x); st(Ti + o, v.y); },
       nothing);
+  PT_STAMP(T_SETUP);
 
   while (it < P.maxiter && !conv) {
     const float inv_mu = 1.0f / mu;
@@ -266,7 +312,9 @@ infer_admm_kernel(const Params P) {
           st(Rr + o, v.x + (ld(Zr + o) - ld(Nr + o) * inv_mu));
           st(Ri + o, v.y + (ld(Zi + o) - ld(Ni + o) * inv_mu)); },
         nothing);
+    PT_STAMP(T_A);
     cluster.sync();
+    PT_STAMP(T_BARRIER);
 
     // ---- B: X = rhs conj(U); Zin = X + N/mu; Gram partial of own slices
     float p_nx = 0.0f;
@@ -284,6 +332,7 @@ infer_admm_kernel(const Params P) {
           p_nx += v.x * v.x + v.y * v.y; },
         nothing);
     __syncthreads();
+    PT_STAMP(T_B);
     for (int e = tid; e < nn; e += kThreads) {
       const int p = e / nr, q = e - p * nr;
       float sr = 0.0f, si = 0.0f;
@@ -300,7 +349,9 @@ infer_admm_kernel(const Params P) {
     }
     p_nx = twoace::block_sum(p_nx, zs.red);
     if (tid == 0) st(mypart + sb + S_NX, p_nx);
+    PT_STAMP(T_B_GRAM);
     cluster.sync();
+    PT_STAMP(T_BARRIER);
 
     // ---- C: AX = X A^T on own m columns, then the prox column by column
     float p_nax = 0.0f, p_ny = 0.0f, p_jm = 0.0f, p_dy = 0.0f, p_obj = 0.0f;
@@ -401,7 +452,9 @@ infer_admm_kernel(const Params P) {
       if (sbr) st(mypart + sb + S_OBJ, p_obj);
     }
     if (!sbr && tid < r) st(mypart + sb + S_OBJ + tid, objacc[tid]);
+    PT_STAMP(T_C);
     cluster.sync();
+    PT_STAMP(T_BARRIER);
 
     // ---- D: A^H Y_new (own n columns), Z-prox, N-dual
     float p_naty = 0.0f, p_daty = 0.0f;
@@ -418,6 +471,7 @@ infer_admm_kernel(const Params P) {
           p_daty += dr * dr + di * di;
           st(Tr + o, v.x); st(Ti + o, v.y); },
         nothing);
+    PT_STAMP(T_D_GEMM);
     // the panel Gram, summed over the cluster in CTA order
     for (int e = tid; e < nn; e += kThreads) {
       float sr = 0.0f, si = 0.0f;
@@ -428,7 +482,9 @@ infer_admm_kernel(const Params P) {
       zs.Gr[e] = sr;
       zs.Gi[e] = si;
     }
+    PT_STAMP(T_D_GRAM);
     twoace::zprox_basis_delta(zs, nr, ranks, fracs, P.levels);
+    PT_STAMP(T_D_ZPROX);
     float p_nz = 0.0f, p_dz = 0.0f, p_jn = 0.0f;
     for (long long e = tid; e < (long long)r * (n1 - n0); e += kThreads) {
       const int k = (int)(e / (n1 - n0)), j = n0 + (int)(e % (n1 - n0));
@@ -465,7 +521,9 @@ infer_admm_kernel(const Params P) {
       st(mypart + sb + S_DZ, p_dz);
       st(mypart + sb + S_JN, p_jn);
     }
+    PT_STAMP(T_D_APPLY);
     cluster.sync();
+    PT_STAMP(T_BARRIER);
 
     // ---- E: every thread of every CTA sums the partials in CTA order
     float s[S_OBJ];
@@ -530,7 +588,9 @@ infer_admm_kernel(const Params P) {
     if (res_comb > last_res * 0.9f) mu = mu * P.rho;
     last_res = res_comb;
     ++it;
+    PT_STAMP(T_E);
   }
+  PT_FINISH(it);
   if (c == 0 && tid == 0) {
     P.it_out[lane] = it;
     P.conv_out[lane] = conv ? 1 : 0;
@@ -586,3 +646,15 @@ extern "C" int twoace_infer_admm(
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
+#ifdef TWOACE_K3_PHASE_TIMER
+// The phase timer's sums of the last launch (T_SLOTS values: nanoseconds
+// per slot, then lane 0's trips), copied to out and cleared.
+extern "C" int twoace_infer_admm_phases(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_k3_phase,
+                                         sizeof(unsigned long long) * T_SLOTS);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zero[T_SLOTS] = {};
+  return (int)cudaMemcpyToSymbol(g_k3_phase, zero, sizeof(zero));
+}
+#endif
