@@ -45,9 +45,14 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 Between phases 2 and 3 the chain benchmark (``chain``), K6's own path,
 runs ``scripts/torch_bench_pallas_mm.py``'s body.
 
-Phase 2 also holds K4 (the per-op loop's pair GEMM) against its plain
-version at the batch solver's, the anchored refine's (one row: the warm
-trackers' m 80 and 256, phase 4's m 1024) and a ragged shape for each
+Phase 2 holds K3 (the loop kernel) against its plain version at the
+single solve's m 972 and 1024, the cold tracker's m 80 and Vs_M's m 3
+(K3_MS), with its 3xTF32 and FP32 bounds, the card's 16-CTA cluster
+occupancy and the phase timer's split of one launch
+(``scripts/torch_k3_phases.py``).  It also holds K4 (the per-op loop's
+pair GEMM) against its plain version at the batch solver's, the anchored
+refine's (one row: the warm trackers' m 80 and 256, phase 4's m 1024)
+and a ragged shape for each
 route, and both against the complex128 product (K4's error at most
 K4_C128_FACTOR times the plain version's), with the route each shape
 takes, the 3xTF32 and float32 bounds and K4's roofline share; and K5 at
@@ -124,8 +129,16 @@ K3_RTOL = 1e-4
 K3_TRIPS = 30
 K3_WARM = 50
 K3_MU0 = 0.4
-#: K3's m in phase 2: the single solve's train split and full data
-K3_MS = (M_TRAIN, M)
+#: K3's m in phase 2: the single solve's train split and full data, the
+#: cold sector tracker's window (max_window 80) and Vs_M's M = 4 (train
+#: split m 3: 13 of the 16 CTAs of a lane own no row)
+K3_MS = (M_TRAIN, M, 80, 3)
+#: the m at which the per-column pass is held too.  At m 80 and m 3 that
+#: pass, from the warm state of ``k3_cases``, is not reproducible in
+#: float32: the plain version on the CPU and on the card part by more than
+#: K3_RTOL (4.7e-4 at m 80; at m 3 the argmin column flips), so no
+#: tolerance holds there and it is reported beside that figure
+K3_COLUMN_HELD_MS = (M_TRAIN, M)
 SINGLE_REPS = 10
 #: K4 against its plain version: max |difference| over max |plain|.  The
 #: two are no longer bit-identical: the tensor-core route's 3xTF32
@@ -410,10 +423,11 @@ def phase2_kernels():
     summary["fused_zprox_t"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain,
         **bound(nbytes(z, v0, lad, zn, vn), k2_flops), library_ms=None)
-    summary["fused_infer_admm"] = phase2_k3()
+    summary["fused_infer_admm"], k3_timed = phase2_k3()
     summary["pair_matmul"] = phase2_k4()
     summary["fused_prox_dual"] = phase2_k5()
     summary["pair_chain_mm"] = phase2_k6()
+    print_k3_phases(*k3_timed)
     return summary
 
 
@@ -525,11 +539,12 @@ def phase2_k5():
 
 def k3_flops(it, r, m, n):
     """Flops of the trips the lanes ran: the four complex products in
-    Karatsuba form, the Z-prox (panel Gram, delta apply, nr x nr chain)
-    and the prox, per trip."""
-    per_trip = (6 * r * (3 * m * n + n * n) + 2 * r * n * NR * 8
-                + 7 * NR ** 3 * 8 + 16 * r * m)
-    return int(it.sum()) * per_trip
+    Karatsuba form, and the rest (the Z-prox: panel Gram, delta apply,
+    nr x nr chain; the prox), per trip."""
+    trips = int(it.sum())
+    products = 6 * r * (3 * m * n + n * n)
+    rest = 2 * r * n * NR * 8 + 7 * NR ** 3 * 8 + 16 * r * m
+    return trips * products, trips * rest
 
 
 def rel_err(got, want):
@@ -603,7 +618,11 @@ def k3_cases(m, lanes=RESTARTS, seed=5):
 def phase2_k3():
     """K3 against its plain version at K3_MS: 3 lanes (one per restart),
     r 20, 16x16, both passes, K3_TRIPS trips with zero tolerances so
-    every trip runs, from a warm lane state (``k3_cases``)."""
+    every trip runs, from a warm lane state (``k3_cases``): equal trips
+    and converged flags everywhere, the relative error within K3_RTOL in
+    the first pass at every m and in the per-column pass at
+    K3_COLUMN_HELD_MS.  Returns the summary at (m 972, scale_by_row) and
+    that case's arguments for ``print_k3_phases``."""
     out = {}
     for m in K3_MS:
         for label, args, kw in k3_cases(m):
@@ -620,24 +639,66 @@ def phase2_k3():
                                    f"{K3_TRIPS}")
             rel = rel_err(got, want)
             err = max_err([*got[0], *got[1]], [*want[0], *want[1]])
-            if not rel <= K3_RTOL:
+            held = kw["scale_by_row"] or m in K3_COLUMN_HELD_MS
+            if not held:
+                cpu = [type(t)(*(v.cpu() for v in t)) if isinstance(t, tuple)
+                       else t.cpu() for t in args]
+                want_cpu = infer_admm_plain(*cpu, **kw)
+                print(f"[2 K3 per-column pass at m {m}, reported, not held] "
+                      f"K3 vs plain {rel:.3e} | plain on the CPU vs plain "
+                      f"on the card {rel_err(want_cpu, want):.3e} | K3 vs "
+                      f"plain on the CPU {rel_err(got, want_cpu):.3e}",
+                      flush=True)
+            elif not rel <= K3_RTOL:
                 raise RuntimeError(f"K3 disagrees with its plain version at "
                                    f"{label}: relative error {rel:.3e} > "
                                    f"{K3_RTOL}")
             ms = cuda_ms(lambda: fused_infer_admm(*args, **kw), reps=5)
             plain = cuda_ms(lambda: infer_admm_plain(*args, **kw), reps=2)
-            flops = k3_flops(got[3], R, m, N)
-            n_bytes = nbytes(*args[:7], args[7], *got[:2]) + 8 * len(got[3])
-            bnd = bound(n_bytes, flops)
+            prod, rest = k3_flops(got[3], R, m, N)
+            t_bytes = (nbytes(*args[:7], args[7], *got[:2])
+                       + 8 * len(got[3])) / PEAK_BYTES * 1e3
+            t_fp32 = (prod + rest) / PEAK_FP32 * 1e3
+            t_tf32 = (3 * prod / PEAK_TF32 + rest / PEAK_FP32) * 1e3
+            bnd = (dict(bound_ms=t_bytes, bound_by="bytes")
+                   if t_bytes >= t_tf32
+                   else dict(bound_ms=t_tf32, bound_by="operations"))
             print(f"[2 K3 fused_infer_admm] {label}, {K3_TRIPS} trips (warm "
                   f"state, mu0 {K3_MU0}): max rel err {rel:.3e} (tol "
-                  f"{K3_RTOL}), max abs err {err:.3e} | kernel {ms:.4f} ms | "
-                  f"plain {plain:.4f} ms | bound {bnd['bound_ms']:.4f} ms "
-                  f"({bnd['bound_by']})", flush=True)
+                  f"{K3_RTOL}{'' if held else ', not held'}), max abs err "
+                  f"{err:.3e}, trips and converged equal | kernel {ms:.4f} "
+                  f"ms | plain {plain:.4f} ms | "
+                  f"bounds: 3xTF32 {t_tf32:.4f} ms (products on the tensor "
+                  f"cores), FP32 {t_fp32:.4f} ms, bytes {t_bytes:.4f} ms",
+                  flush=True)
             out[(m, kw["scale_by_row"])] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, **bnd,
                 library_ms=None)
-    return out[(M_TRAIN, True)]
+            if (m, kw["scale_by_row"]) == (M_TRAIN, True):
+                timed = args, kw
+    return out[(M_TRAIN, True)], timed
+
+
+def print_k3_phases(args, kw):
+    """K3's cluster occupancy and the phase timer's split of one launch
+    (``scripts/torch_k3_phases.py``'s timer build)."""
+    import tempfile
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "scripts"))
+    from torch_k3_phases import build_timer_lib, fmt_split, phase_split
+    from twoace_tpu_torch.ops.kernels.infer_admm import (CLUSTER,
+                                                          active_clusters)
+
+    print(f"[2 K3 occupancy] clusters of {CLUSTER} CTAs placed at once "
+          f"(cudaOccupancyMaxActiveClusters): r {R} 16x16 "
+          f"{active_clusters(R, NT, NR)}, r 32 {active_clusters(32, NT, NR)}",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        split, trips = phase_split(build_timer_lib(tmp),
+                                   lambda: fused_infer_admm(*args, **kw))
+    print(f"[2 K3 phases] m {M_TRAIN} scale_by_row True, timer build, CTA "
+          f"0 of lane 0 over {trips} trips: {fmt_split(split)}", flush=True)
 
 
 def phase2_k4():

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """A/B timing of one of chip_smoke.py's cells between two checkouts on one
-GPU: phase 3's batch solve, or a phase 5 warm tracker's windows.
+GPU: phase 3's batch solve, phase 4's two-path single solve, or a phase 5
+warm tracker's windows.
 
-    python3 scripts/torch_batch_ab.py BASE_DIR [--cell batch|warm|warm_fresh]
-        [--pairs 10] [--profile-head]
+    python3 scripts/torch_batch_ab.py BASE_DIR
+        [--cell batch|single|warm|warm_fresh] [--pairs 10] [--profile-head]
 
 Starts one worker process in the checkout that holds this script (head)
 and then one in BASE_DIR (base).  Each imports its own tree's
@@ -16,6 +17,14 @@ and then one in BASE_DIR (base).  Each imports its own tree's
   one ``solve_lowrank_multi_pair_batch`` between CUDA events; it fails
   unless it meets phase 3's bars (median NMSE <= -60 dB, min quality
   >= 0.98).
+- ``single``: phase 4's two-path single solve
+  (``chip_smoke.single_workload``: bench.py's seed-3 codebook, 16x16,
+  m = 1024, a two-path channel) at the cold ``AdmmConfig(maxiter=500)``,
+  solved once to warm up.  A run is ten ``solve_lowrank_multi_pair``
+  calls (generator seeds 1 ... 10) one after another, each on the host
+  clock ending in ``torch.cuda.synchronize()``; it reports their median
+  ms and solves/s (1000 over the median) and fails unless it meets
+  phase 4's bars (median NMSE <= -60 dB, min quality >= 0.98).
 - ``warm`` / ``warm_fresh``: phase 5's warm rank-1 tracker
   (``make_warm_pair_solver(use_rank_one=True)``, maxiter 500) on the
   sector stream with max_window 80, or on the fresh-pair stream with
@@ -98,6 +107,51 @@ def batch_cell():
     return run
 
 
+def single_cell():
+    """Phase 4's two-path single solve, warmed up; returns its timed run."""
+    import torch
+
+    import chip_smoke as cs
+    from twoace_tpu_torch import interop
+    from twoace_tpu_torch.config import AdmmConfig
+    from twoace_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from twoace_tpu_torch.ops.pair_solver import solve_lowrank_multi_pair
+
+    a, workloads = cs.single_workload()
+    x_true = workloads["two-path x"]
+    ap = interop.pair_from_numpy(a, None, device="cuda")
+    bt = torch.as_tensor(np.abs(a @ x_true), dtype=torch.float32,
+                         device="cuda")
+    cfg = AdmmConfig(maxiter=500)
+
+    def solve(i):
+        return solve_lowrank_multi_pair(torch.Generator().manual_seed(i),
+                                        ap, bt, cs.NT, cs.NR, cfg)
+
+    solve(0)
+    torch.cuda.synchronize()
+
+    def run():
+        reset_launch_counts()
+        ms, nmse, qual = [], [], []
+        for i in range(1, cs.SINGLE_REPS + 1):
+            t0 = time.perf_counter()
+            res = solve(i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            nmse.append(cs.nmse_db(res.x, x_true))
+            qual.append(float(res.quality))
+        med = float(np.median(ms))
+        out = dict(secs=sum(ms) / 1e3, rate=1e3 / med, median_ms=med,
+                   ms=ms, nmse_db=float(np.median(nmse)), qmin=min(qual),
+                   launches=launch_counts())
+        if out["nmse_db"] > -60.0 or out["qmin"] < 0.98:
+            raise RuntimeError(f"missed phase 4's bars: {out}")
+        return out
+
+    return run
+
+
 def tracker_cell(cell, record_path):
     """A warm tracker's recorded windows (recorded here first if
     ``record_path`` does not exist yet), warmed up; returns its timed
@@ -167,7 +221,8 @@ def worker(cell, record_path, profile_first):
         x = torch.ones(1024, device="cuda")
         print(f"profiled: {cs.device_ms(lambda: x * 2.0)} ms a launch",
               flush=True)
-    run = batch_cell() if cell == "batch" else tracker_cell(cell, record_path)
+    run = (batch_cell() if cell == "batch" else single_cell()
+           if cell == "single" else tracker_cell(cell, record_path))
     print("AB " + json.dumps({"ready": True}), flush=True)
     for _ in sys.stdin:
         print("AB " + json.dumps(run()), flush=True)
@@ -186,6 +241,11 @@ def quartiles(v):
 
 
 def describe(r, unit):
+    if unit == "solves/s":
+        return (f"median {r['median_ms']:.2f} ms a solve | {r['rate']:.4f} "
+                f"solves/s | ms {[round(x, 2) for x in r['ms']]} | median "
+                f"NMSE {r['nmse_db']:.2f} dB | min quality {r['qmin']:.6f} | "
+                f"launches {r['launches']}")
     if unit == "rec/s":
         return (f"{r['secs']:.4f} s | {r['rate']:.2f} rec/s | {r['iters']} "
                 f"iters | median NMSE {r['nmse_db']:.2f} dB | min quality "
@@ -198,7 +258,8 @@ def describe(r, unit):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("base_dir")
-    ap.add_argument("--cell", choices=("batch", "warm", "warm_fresh"),
+    ap.add_argument("--cell", choices=("batch", "single", "warm",
+                                       "warm_fresh"),
                     default="batch")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--profile-head", action="store_true")
@@ -208,7 +269,8 @@ def main():
     if args.worker:
         return worker(args.cell, args.record, args.profile_head)
 
-    unit = "rec/s" if args.cell == "batch" else "windows/s"
+    unit = {"batch": "rec/s", "single": "solves/s"}.get(args.cell,
+                                                        "windows/s")
     tmp = tempfile.TemporaryDirectory()
     record = os.path.join(tmp.name, "windows.pkl")
     dirs = {"head": HEAD_DIR, "base": os.path.abspath(args.base_dir)}
@@ -242,7 +304,12 @@ def main():
     summary = {"cell": args.cell, "unit": unit}
     for name, rs in runs.items():
         summary[name] = dict(rate=quartiles([r["rate"] for r in rs]))
-        if unit == "rec/s":
+        if unit == "solves/s":
+            summary[name].update(
+                median_ms=quartiles([r["median_ms"] for r in rs]),
+                nmse_db_median=float(np.median([r["nmse_db"] for r in rs])),
+                launches=rs[-1]["launches"])
+        elif unit == "rec/s":
             summary[name].update(
                 nmse_db_median=float(np.median([r["nmse_db"] for r in rs])),
                 iters=sorted({r["iters"] for r in rs}))
@@ -251,6 +318,11 @@ def main():
     summary["head_over_base"] = dict(**quartiles(ratio),
                                      head_wins=sum(x > 1.0 for x in ratio),
                                      pairs=len(ratio))
+    if unit == "solves/s":
+        # the median solve's ms, head over base: below 1 where head is faster
+        summary["latency_head_over_base"] = quartiles(
+            [h["median_ms"] / b["median_ms"]
+             for b, h in zip(runs["base"], runs["head"])])
     if unit == "windows/s":
         # a window's ms, base over head: above 1 where head is faster
         per_window = [bw / hw for b, h in zip(runs["base"], runs["head"])

@@ -9,14 +9,18 @@ with ``-DTWOACE_K3_PHASE_TIMER`` (``_build.NVCC_FLAGS`` plus the macro,
 into a temporary directory; the normal build never sets it).  In that
 build, thread 0 of lane 0's first CTA stamps ``%globaltimer`` at the end
 of each phase of a trip (A: the X-update's right-hand side; B: X and the
-panel-Gram partial; C: A X and the magnitude prox; D: A^H Y, the Gram
+panel-Gram partial; C: A X, then the magnitude prox; D: A^H Y, the Gram
 sum, the Z-prox chain and its apply; E: the residual tests) and sums the
 nanoseconds per phase; the time it waits in cluster barriers has its own
-slot.  For each m it runs ``chip_smoke.k3_cases(m)`` (3 lanes, r 20,
-16x16, both passes, 30 trips from a warm lane state, as phase 2 does)
-through the wrapper with the timer build swapped in, and prints the
-microseconds a trip per phase beside the normal build's CUDA-event time
-of the same launch.  With ``--out``, writes every number as JSON.
+slot.  Reported beside the phases, as parts of them: the products' time
+waiting for a stage of their cp.async ring, issuing a stage's copies and
+computing on a stage (in A, B, C and D gemm), and the Z-prox chain's
+products, elementwise steps and ladder (in D zprox).  For each m it runs
+``chip_smoke.k3_cases(m)`` (3 lanes, r 20, 16x16, both passes, 30 trips
+from a warm lane state, as phase 2 does) through the wrapper with the
+timer build swapped in, and prints the microseconds a trip per phase
+beside the normal build's CUDA-event time of the same launch.  With
+``--out``, writes every number as JSON.
 """
 
 import argparse
@@ -34,8 +38,16 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from twoace_tpu_torch.ops.kernels import _build  # noqa: E402
 
 #: the timer's slots, in csrc/infer_admm.cu's PhaseSlot order
-SLOTS = ("setup", "A", "B", "B gram", "C", "D gemm", "D gram", "D zprox",
-         "D apply", "E", "barriers")
+SLOTS = ("setup", "A", "B", "B gram", "C", "C prox", "D gemm", "D gram",
+         "D zprox", "D apply", "E", "barriers", "product waits",
+         "product issue", "product mma", "zprox products",
+         "zprox elementwise", "zprox ladder")
+#: slots that are part of others: the products' time (in A, B, C and D
+#: gemm) waiting for a stage of the ring, issuing a stage's copies, and
+#: computing on a stage; the Z-prox chain's products, elementwise steps
+#: and ladder (in D zprox)
+INSIDE = ("product waits", "product issue", "product mma", "zprox products",
+          "zprox elementwise", "zprox ladder")
 MACRO = "-DTWOACE_K3_PHASE_TIMER"
 
 
@@ -82,7 +94,8 @@ def phase_split(lib, launch, reps=3):
 
 
 def fmt_split(per_trip):
-    total = sum(v for k, v in per_trip.items() if k != "setup")
+    total = sum(v for k, v in per_trip.items()
+                if k != "setup" and k not in INSIDE)
     return (f"{total:.2f} us a trip: " + ", ".join(
         f"{k} {v:.2f} ({100 * v / total:.0f}%)"
         for k, v in per_trip.items() if k != "setup")

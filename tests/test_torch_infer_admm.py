@@ -30,22 +30,23 @@ R = 6
 LOOP = dict(rho=1.03, tol_rel=0.1, tol_abs=1e-8)   # stops lanes early
 
 
-def _problem(seed=0, lanes=2):
+def _problem(seed=0, lanes=2, nt=NT, nr=NR, m=M):
     """One codebook, ``lanes`` channels, and the prepared state of each
     lane (the port's own initialization, handed to both packages).  Lane
     0 carries the train-split ladder, lane 1 the rank-1 ladder; both are
     padded with f = 0 levels."""
+    n = nt * nr
     rng = np.random.default_rng(seed)
-    a = codebook(rng, M, N)
-    xs = [np.outer(steer(NR, 0.3 + 0.4 * i), steer(NT, -0.2).conj()).T
-          .reshape(-1) + 0.4 * np.outer(steer(NR, -0.7), steer(NT, 0.5 * i)
+    a = codebook(rng, m, n)
+    xs = [np.outer(steer(nr, 0.3 + 0.4 * i), steer(nt, -0.2).conj()).T
+          .reshape(-1) + 0.4 * np.outer(steer(nr, -0.7), steer(nt, 0.5 * i)
                                         .conj()).T.reshape(-1)
           for i in range(lanes)]
     b = np.abs(np.stack(xs) @ a.T).astype(np.float32)            # (P, m)
-    x0 = (rng.normal(size=(lanes, R, N))
-          + 1j * rng.normal(size=(lanes, R, N))).astype(np.complex64)
-    static = [profile_ladder(NT, NR, M, N, i % 2 == 1) for i in range(lanes)]
-    lads = [profile_ladder_arrays(NT, NR, M, N, i % 2 == 1)
+    x0 = (rng.normal(size=(lanes, R, n))
+          + 1j * rng.normal(size=(lanes, R, n))).astype(np.complex64)
+    static = [profile_ladder(nt, nr, m, n, i % 2 == 1) for i in range(lanes)]
+    lads = [profile_ladder_arrays(nt, nr, m, n, i % 2 == 1)
             for i in range(lanes)]
     lad = LadderArrays(torch.stack([l.ranks for l in lads]),
                        torch.stack([l.fracs for l in lads]))
@@ -181,18 +182,80 @@ def test_wrapper_checks_reject_what_the_kernel_does_not_take():
         k3._check(at, bt, u, big, z0, v0, mu0, lad, NT, NR)
     with pytest.raises(ValueError, match="float32"):
         k3._check(at, bt.double(), *good[2:], NT, NR)
-    assert k3.workspace_floats(R, M, N, NR) == (
-        4 * R * M + 12 * R * N + k3.CLUSTER * (2 * NR * NR + 10 + R))
+
+
+def _meta_args(nt, nr, m, r=R, g=1, p=2):
+    """Arguments of the wrapper's checks at a shape, as meta tensors."""
+    n = nt * nr
+    meta = lambda *s: torch.empty(s, device="meta")
+    pair = lambda *s: Pair(meta(*s), meta(*s))
+    return (pair(g, m, n), meta(g, p, m), pair(g, n, n), pair(g, p, r, m),
+            pair(g, p, r, n), pair(g, p, nr, nr), meta(g, p),
+            LadderArrays(meta(g * p, 4), meta(g * p, 4)))
+
+
+@pytest.mark.parametrize("nt, nr, m", [(16, 16, 1024), (16, 16, 3),
+                                       (32, 8, 4096), (4, 4, 32)])
+def test_wrapper_takes_the_shapes_the_16_cta_kernel_runs(nt, nr, m):
+    """The solver's 16x16 at m 1024 (also at r 32), Vs_M's m 3 (most
+    CTAs own no row), two slices a CTA at nt 32, and the tests' 4x4 (most
+    CTAs own no column) pass the checks; each CTA's shared memory fits
+    the card."""
+    k3._check(*_meta_args(nt, nr, m), nt, nr)
+    assert k3.smem_bytes(R, nt, nr) <= k3.MAX_SMEM
+    assert k3.smem_bytes(32, 16, 16) <= k3.MAX_SMEM
+    assert k3.own_cols_max(nt, nr) == -(-nt // k3.CLUSTER) * nr
+
+
+@pytest.mark.parametrize("nt, nr, r, match", [
+    (80, 16, R, "own 80 columns"),        # five slices a CTA
+    (32, 32, R, "shared memory"),         # 32x32: 249 KB a CTA
+    (16, 16, 40, "r <= 32"),
+])
+def test_wrapper_rejects_what_the_16_cta_kernel_cannot_take(nt, nr, r, match):
+    with pytest.raises(ValueError, match=match):
+        k3._check(*_meta_args(nt, nr, 64, r=r), nt, nr)
+
+
+def test_workspace_holds_lane_state_then_split_constants_per_group():
+    """The workspace: each lane's Y, M-dual, Y - M/mu for both of the
+    next trip's mu, X and rhs, then one set of
+    split constants (TF32 halves of A's re, im, re + im, re - im and of
+    U's re, im, re - im) per group of lanes, not per lane."""
+    assert k3.CLUSTER == 16
+    assert k3.lane_floats(R, M, N) == 8 * R * M + 4 * R * N
+    assert k3.lane_floats(3, 5, 16) == 8 * 3 * 5 + 4 * 3 * 16   # 312
+    assert k3.lane_floats(3, 5, 15) % 4 == 0                   # 16-B aligned
+    assert k3.split_floats(M, N) == 2 * (4 * M * N + 3 * N * N)
+    assert k3.split_floats(3, 5) == 2 * (4 * 15 + 3 * 25) + 2  # rounded to 4
+    # the single solve: 3 groups of one lane; a batch of 64 lanes sharing
+    # one codebook needs one split, not 64
+    assert k3.workspace_floats(3, 3, 20, 972, 256) == (
+        3 * k3.lane_floats(20, 972, 256) + 3 * k3.split_floats(972, 256))
+    assert k3.workspace_floats(64, 1, 20, 1024, 256) == (
+        64 * k3.lane_floats(20, 1024, 256) + k3.split_floats(1024, 256))
+    # at the solver's shape the split constants are 10 MB a group
+    assert 4 * k3.split_floats(1024, 256) == 9961472
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("scale_by_row", [True, False])
-def test_k3_kernel_matches_plain_on_card(scale_by_row):
+@pytest.mark.parametrize("scale_by_row, nt, nr, m", [
+    (True, NT, NR, M), (False, NT, NR, M), (True, 16, 2, 8),
+    (False, 16, 2, 8), (True, 16, 4, 96)],
+    ids=["scale_by_row-4x4_m32", "per_column-4x4_m32",
+         "scale_by_row-nt16_m8", "per_column-nt16_m8",
+         "scale_by_row-nt16_m96"])
+def test_k3_kernel_matches_plain_on_card(scale_by_row, nt, nr, m):
     """K3 against its plain version on the card, two groups of two lanes
-    (G = 2, P = 2), a tolerance that stops some lanes early."""
+    (G = 2, P = 2), a tolerance that stops some lanes early: at the
+    tests' 4x4 (12 of the 16 CTAs own no column), at nt 16 (one slice a
+    CTA) with m 8 below the cluster's 16 CTAs (half of them own no row),
+    and at nt 16 with m 96 (six rows a CTA) in the first pass; the
+    per-column pass from this cold start at m 96 is not reproducible in
+    float32 (the plain version on the CPU and on the card part)."""
     require_cuda()
-    a, b, x0, static, at, bt, u, lad = _problem(lanes=2)
-    a2, b2, x02, *_ = _problem(seed=3, lanes=2)
+    a, b, x0, static, at, bt, u, lad = _problem(lanes=2, nt=nt, nr=nr, m=m)
+    a2, b2, x02, *_ = _problem(seed=3, lanes=2, nt=nt, nr=nr, m=m)
     cat = lambda p, q: Pair(torch.cat([p.re, q.re]), torch.cat([p.im, q.im]))
     at = cat(at, tpair(a2[None]))
     bt = torch.cat([bt, torch.tensor(b2[None])])
@@ -201,14 +264,14 @@ def test_k3_kernel_matches_plain_on_card(scale_by_row):
     lad4 = LadderArrays(torch.cat([lad.ranks, lad.ranks]),
                         torch.cat([lad.fracs, lad.fracs]))
     y0, z0, v0 = tps.admm_init_pair(
-        at, bt, x0t, scale_by_row=scale_by_row, nt=NT, nr=NR,
+        at, bt, x0t, scale_by_row=scale_by_row, nt=nt, nr=nr,
         ladder=LadderArrays(lad4.ranks.view(2, 2, -1),
                             lad4.fracs.view(2, 2, -1)))
     cuda = lambda p: Pair(p.re.cuda().contiguous(), p.im.cuda().contiguous())
     args = [cuda(at), bt.cuda(), cuda(u), cuda(y0), cuda(z0), cuda(v0),
             torch.full((2, 2), 1e-3, device="cuda"),
             LadderArrays(lad4.ranks.cuda(), lad4.fracs.cuda())]
-    kw = dict(nt=NT, nr=NR, scale_by_row=scale_by_row, maxiter=30, **LOOP)
+    kw = dict(nt=nt, nr=nr, scale_by_row=scale_by_row, maxiter=30, **LOOP)
     before = kernels.fused_infer_admm.launches
     ox, oy, conv, it = kernels.fused_infer_admm(*args, **kw)
     torch.cuda.synchronize()
@@ -219,3 +282,11 @@ def test_k3_kernel_matches_plain_on_card(scale_by_row):
         for gg, ww in ((g.re, w.re), (g.im, w.im)):
             torch.testing.assert_close(gg, ww, rtol=0,
                                        atol=2e-4 * float(ww.abs().max()))
+
+
+@pytest.mark.gpu
+def test_a_16_cta_cluster_is_placed_on_card():
+    """The card places at least one 16-CTA cluster at the solver's
+    shape (the launch raises otherwise, and never runs fewer CTAs)."""
+    require_cuda()
+    assert k3.active_clusters(20, 16, 16) >= 1

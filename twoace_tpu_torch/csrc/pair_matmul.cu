@@ -12,7 +12,8 @@
 // The tensor-core route ("tc"), for the batch solver's products
 // ((3, 1280, 972) @ (3, 972, 256) and its kin: 5.7 GFLOP of Karatsuba
 // products against about 30 MB of operands, so bound by operations).
-//  - Precision, 3xTF32: every float32 operand x is split into TF32 halves
+//  - Precision, 3xTF32 (the helpers in tf32x3.cuh, shared with K3): every
+//    float32 operand x is split into TF32 halves
 //    big = rna(x) and small = rna(x - big), and each real product is
 //    small*big + big*small + big*big on the tensor cores (about 2^-22 per
 //    product against plain TF32's 2^-11, three digits; small*small is
@@ -74,76 +75,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-// ---------------------------------------------------------------- helpers
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16-byte copy, L2 only; src_size 0 zero-fills the destination
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// x = big + small to about 2^-22 relative, both TF32, rounded to nearest
-// (ties away from zero) by integer adds, as CUTLASS's fast 3xTF32 does:
-// half a TF32 ulp added to the bit pattern, and the MMA reads only a .tf32
-// operand's top 19 bits.
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = __float_as_uint(x) + 0x1000u;
-  small = __float_as_uint(x - __uint_as_float(big & 0xffffe000u)) + 0x1000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b in 3xTF32, the small terms first: the three products are
-// summed into a fresh register from zero and added to c with a float32 add
-// that rounds to nearest; the tensor cores' own accumulation truncates,
-// and into a long-running c that bias grows with K (PERF.md).
-__device__ __forceinline__ void mma3(float* c, const uint32_t* a_big,
-                                     const uint32_t* a_small,
-                                     const uint32_t* b_big,
-                                     const uint32_t* b_small) {
-  float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  mma_tf32(d, a_small, b_big);
-  mma_tf32(d, a_big, b_small);
-  mma_tf32(d, a_big, b_big);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) c[q] += d[q];
-}
-
-__host__ __device__ inline bool aligned16(const void* p) {
-  return ((uintptr_t)p & 15) == 0;
-}
+using twoace::aligned16;
+using twoace::cp16;
+using twoace::cp4;
+using twoace::cp_commit;
+using twoace::cp_wait;
+using twoace::mma3;
+using twoace::smem_u32;
+using twoace::split;
 
 // ------------------------------------------------------ tensor-core route
 

@@ -19,8 +19,10 @@
 // of seven dependent nr x nr complex products and two block reductions, each
 // separated by a barrier.  Design: only nr x nr matrices are kept in shared
 // memory (8 of them plus two nr-vectors: 8 KB at nr = 16, 33 KB at nr = 32,
-// under the 48 KB default, no opt-in), one thread per matrix entry, and one
-// block per lane so the 192 lanes of the main path fill the 132 SMs.
+// under the 48 KB default, no opt-in), the chain's products 3xTF32 on the
+// tensor cores and its ladder on one warp (zprox_core.cuh, shared with K3),
+// and one block per lane so the 192 lanes of the main path fill the 132
+// SMs.
 //
 // Plain C interface, loaded with ctypes.  Launches on the caller's stream,
 // allocates nothing, and returns cudaGetLastError() after the launch.

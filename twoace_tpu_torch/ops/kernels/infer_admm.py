@@ -1,5 +1,5 @@
-"""K3: the whole InferADMM loop in one CUDA kernel, one thread-block
-cluster per lane (``csrc/infer_admm.cu``).
+"""K3: the whole InferADMM loop in one CUDA kernel, one 16-CTA
+thread-block cluster per lane (``csrc/infer_admm.cu``).
 
 Port of ``twoace_tpu.ops.pallas.solver_kernel.fused_infer_admm``, with a
 lane axis: ``a`` (G, m, n) and ``u`` (G, n, n) per group, ``b`` and the
@@ -8,10 +8,11 @@ A CPU tensor takes the plain version :func:`infer_admm_plain`, which runs
 the shared loop body (:func:`..admm_loop.admm_loop`) with K4's, K1's and
 K2's plain versions; a CUDA tensor launches the kernel or raises.
 
-On CUDA the kernel computes every product in float32 on the CUDA cores
-(no tensor cores), so it is convergence-class whatever
-``AdmmConfig.kernel_precision`` says; the JAX kernel's single-pass
-"default" and 3-pass "split3" modes have no counterpart yet.
+On CUDA the kernel computes its four complex products in 3xTF32 on the
+tensor cores against constants split once per launch (the counterpart
+of the JAX kernel's "split3" mode), float32-class whatever
+``AdmmConfig.kernel_precision`` says: that option is ignored, and the
+JAX kernel's single-pass "default" mode has no counterpart.
 """
 
 from __future__ import annotations
@@ -25,10 +26,66 @@ from .pair_matmul import pair_matmul_plain
 from .prox_dual import prox_dual_t_plain
 from .zprox import MAX_NR, zprox_t_plain
 
-#: CTAs of the thread-block cluster that runs one lane (csrc/infer_admm.cu)
-CLUSTER = 8
+#: CTAs of the thread-block cluster that runs one lane (csrc/infer_admm.cu,
+#: a build constant)
+CLUSTER = 16
 #: the kernel keeps at most this many rows r of a lane's state per tile
 MAX_R = 32
+#: n columns one CTA may own: ceil(nt / CLUSTER) slices of nr
+MAX_OWN_COLS = 64
+#: shared memory a block may use on the H100 (227 KB)
+MAX_SMEM = 232448
+#: the kernel's fixed shared memory in floats: a three-stage ring of
+#: 16384 floats a stage, 48 scalar slots, their gather (48 x CLUSTER) and
+#: totals, 2 x 128 column coefficients and 8 x 8 warp sums
+_SMEM_FIXED = 3 * 16384 + 48 + 48 * CLUSTER + 48 + 2 * 128 + 64
+
+
+def _round4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def own_cols_max(nt: int, nr: int) -> int:
+    """n columns the busiest CTA of a cluster owns."""
+    return -(-nt // CLUSTER) * nr
+
+
+def smem_bytes(r: int, nt: int, nr: int) -> int:
+    """Shared memory of one CTA; matches ``layout`` in the kernel: the
+    fixed part, five (r, own columns) complex planes (Z, N, A^H Y, X,
+    Zin), the panel-Gram partial and the Z-prox chain's matrices."""
+    floats = (_SMEM_FIXED + _round4(10 * r * own_cols_max(nt, nr))
+              + _round4(2 * nr * nr) + _round4(8 * nr * nr + 2 * nr + 8))
+    return 4 * floats
+
+
+def lane_floats(r: int, m: int, n: int) -> int:
+    """Floats of one lane's state in the workspace: Y, the M-dual and
+    Y - M/mu for both of the next trip's mu (r, m), X and the rhs (r, n),
+    each a (re, im) pair.  Matches ``lane_workspace`` in the kernel."""
+    return _round4(8 * r * m + 4 * r * n)
+
+
+def split_floats(m: int, n: int) -> int:
+    """Floats of one group's split constants: the (big, small) TF32
+    halves of A's re, im, re + im and re - im planes (m, n) and of U's
+    re, im and re - im planes (n, n).  Matches ``split_workspace``."""
+    return _round4(2 * 4 * m * n + 2 * 3 * n * n)
+
+
+def workspace_floats(lanes: int, groups: int, r: int, m: int, n: int) -> int:
+    """Floats of a launch's workspace: every lane's state, then every
+    group's split constants."""
+    return lanes * lane_floats(r, m, n) + groups * split_floats(m, n)
+
+
+def active_clusters(r: int, nt: int, nr: int) -> int:
+    """How many of the kernel's clusters the current CUDA device places at
+    once at this shape's shared memory (``cudaOccupancyMaxActiveClusters``);
+    the launch raises at 0."""
+    got = _build.library().twoace_infer_admm_clusters(r, nt, nr)
+    _build.check(min(got, 0), "cudaOccupancyMaxActiveClusters")
+    return got
 
 
 def infer_admm_plain(a: Pair, b, u: Pair, y0: Pair, z0: Pair, v0: Pair, mu0,
@@ -48,15 +105,6 @@ def infer_admm_plain(a: Pair, b, u: Pair, y0: Pair, z0: Pair, v0: Pair, mu0,
                      tol_rel=tol_rel, tol_abs=tol_abs, maxiter=maxiter)
 
 
-def workspace_floats(r: int, m: int, n: int, nr: int) -> int:
-    """Floats of one lane's workspace: Y and the M-dual (r, m); Z, the
-    N-dual, A^H Y, X, the rhs and X + N/mu (r, n), each a (re, im) pair;
-    then the cluster's partial sums.  Matches ``lane_workspace`` in the
-    kernel."""
-    partials = 2 * nr * nr + 10 + r
-    return 4 * r * m + 12 * r * n + CLUSTER * partials
-
-
 def _check(a: Pair, b, u: Pair, y0: Pair, z0: Pair, v0: Pair, mu0,
            ladder: LadderArrays, nt: int, nr: int):
     g_, p_, r, m = y0.re.shape
@@ -67,6 +115,13 @@ def _check(a: Pair, b, u: Pair, y0: Pair, z0: Pair, v0: Pair, mu0,
         raise ValueError(f"the kernel takes 1 <= nr <= {MAX_NR}, got {nr}")
     if not 1 <= r <= MAX_R:
         raise ValueError(f"the kernel takes 1 <= r <= {MAX_R}, got {r}")
+    if own_cols_max(nt, nr) > MAX_OWN_COLS:
+        raise ValueError(f"a CTA of the {CLUSTER}-CTA cluster would own "
+                         f"{own_cols_max(nt, nr)} columns of n; the kernel "
+                         f"takes at most {MAX_OWN_COLS}")
+    if smem_bytes(r, nt, nr) > MAX_SMEM:
+        raise ValueError(f"the kernel would need {smem_bytes(r, nt, nr)} B "
+                         f"of shared memory a CTA, above {MAX_SMEM}")
     levels = ladder.ranks.shape[-1]
     lanes = g_ * p_
     _build.check_inputs({"a.re": (a.re, (g_, m, n)), "a.im": (a.im, (g_, m, n)),
@@ -113,8 +168,9 @@ def fused_infer_admm(a: Pair, b, u: Pair, y0: Pair, z0: Pair, v0: Pair, mu0,
     k_opt = r if scale_by_row else 1
     dev = a.re.device
     lib = _build.library()
-    ws_lane = workspace_floats(r, m, n, nr)
-    ws = torch.empty(lanes * ws_lane, dtype=torch.float32, device=dev)
+    ws_lane = lane_floats(r, m, n)
+    ws = torch.empty(workspace_floats(lanes, g_, r, m, n),
+                     dtype=torch.float32, device=dev)
     ox = [torch.zeros(g_, p_, k_opt, n, device=dev) for _ in range(2)]
     oy = [torch.zeros(g_, p_, k_opt, m, device=dev) for _ in range(2)]
     it = torch.zeros(g_, p_, dtype=torch.int32, device=dev)

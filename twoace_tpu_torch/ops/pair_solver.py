@@ -265,8 +265,10 @@ def infer_admm_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool,
     On CUDA a spectral-profile solve without anchor and warm trips runs
     in the loop kernel K3, unless ``fused_loop`` is False (the batch
     solver's routing, kept on the per-op loop until a measurement decides
-    it); other solves run the per-op loop (K4, K1, K2).  Both compute
-    every product in float32 on the CUDA cores.
+    it); other solves run the per-op loop (K4, K1, K2).  K3 computes its
+    products in 3xTF32 on the tensor cores against constants split once
+    per launch, K4 in 3xTF32 tensor-core tiles or split-K on the CUDA
+    cores: float32-class either way.
 
     Returns ``(opt_x, opt_y, converged, it)``: opt_x (G, P, r, n) with
     ``scale_by_row``, else the best column (G, P, 1, n); ``it`` (G, P)
@@ -550,7 +552,8 @@ def solve_lowrank_multi_pair_batch(generator: Optional[torch.Generator],
     the rank-1 retry of exactly the poor pairs, and the refine.  The
     nuclear prox has no retry (ref: JAX ``pair_solver.py:909``).  Runs with
     ``torch.backends.cuda.matmul.allow_tf32`` False (JAX's "float32"); its
-    loop's products run in K4, float32 on the CUDA cores.
+    loop's products run in K4 (3xTF32 on the tensor cores at these shapes:
+    float32-class).
 
     ``generator`` draws the train/test splits and the spectral-init start
     blocks (on the CPU).  Test-only: ``splits`` = (trains (R, k), tests
