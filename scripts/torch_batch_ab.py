@@ -16,7 +16,9 @@ and then one in BASE_DIR (base).  Each imports its own tree's
   warm_iters 80, pass caps 120/160, split generator seed 0).  A run is
   one ``solve_lowrank_multi_pair_batch`` between CUDA events; it fails
   unless it meets phase 3's bars (median NMSE <= -60 dB, min quality
-  >= 0.98).
+  >= 0.98).  Each worker also reports K2's max |difference| from its
+  plain version on one seeded input of phase 2's kind (``k2_error``), to
+  set beside chip_smoke.py's K2_ATOL.
 - ``single``: phase 4's two-path single solve
   (``chip_smoke.single_workload``: bench.py's seed-3 codebook, 16x16,
   m = 1024, a two-path channel) at the cold ``AdmmConfig(maxiter=500)``,
@@ -105,6 +107,41 @@ def batch_cell():
         return out
 
     return run
+
+
+def k2_error():
+    """K2's max |difference| from its plain version on inputs of phase 2's
+    kind (192 lanes, r 20, 16x16, a warm basis, the lanes mixing the
+    three ladders), drawn from one seed, so both checkouts see the same
+    inputs."""
+    import torch
+
+    import chip_smoke as cs
+    from twoace_tpu_torch.ops.cplx import LadderArrays, Pair
+    from twoace_tpu_torch.ops.kernels import fused_zprox_t
+    from twoace_tpu_torch.ops.kernels.zprox import zprox_t_plain
+    from twoace_tpu_torch.ops.prox import profile_ladder_arrays
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lanes, n = cs.LANES, cs.N
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    z = Pair(randn(lanes, cs.R, n), randn(lanes, cs.R, n))
+    zp = Pair(z.re + 0.05 * randn(lanes, cs.R, n),
+              z.im + 0.05 * randn(lanes, cs.R, n))
+    lads = [profile_ladder_arrays(cs.NT, cs.NR, m, n, one, device="cuda")
+            for m, one in ((cs.M_TRAIN, False), (cs.M_TRAIN, True),
+                           (cs.M, False))]
+    pick = torch.arange(lanes, device="cuda") % 3
+    lad = LadderArrays(torch.stack([l.ranks for l in lads])[pick],
+                       torch.stack([l.fracs for l in lads])[pick])
+    _, v0 = zprox_t_plain(zp, None, cs.NT, cs.NR, lad)
+    got = fused_zprox_t(z, v0, cs.NT, cs.NR, lad)
+    want = zprox_t_plain(z, v0, cs.NT, cs.NR, lad)
+    return max(float((g - w).abs().max()) for gp, wp in zip(got, want)
+               for g, w in zip(gp, wp))
 
 
 def single_cell():
@@ -223,7 +260,10 @@ def worker(cell, record_path, profile_first):
               flush=True)
     run = (batch_cell() if cell == "batch" else single_cell()
            if cell == "single" else tracker_cell(cell, record_path))
-    print("AB " + json.dumps({"ready": True}), flush=True)
+    ready = {"ready": True}
+    if cell == "batch":
+        ready["k2_max_abs_err"] = k2_error()
+    print("AB " + json.dumps(ready), flush=True)
     for _ in sys.stdin:
         print("AB " + json.dumps(run()), flush=True)
 
@@ -277,6 +317,7 @@ def main():
     procs = {}
     try:
         # head first: for a tracker it records the windows both replay
+        ready = {}
         for name, d in dirs.items():
             procs[name] = subprocess.Popen(
                 [sys.executable, "-u", os.path.abspath(__file__), d,
@@ -285,7 +326,7 @@ def main():
                    else []),
                 cwd=d, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
                 text=True)
-            read(procs[name], name)
+            ready[name] = read(procs[name], name)
         runs = {"base": [], "head": []}
         for i in range(args.pairs):
             for name in (("base", "head") if i % 2 == 0 else ("head", "base")):
@@ -304,6 +345,8 @@ def main():
     summary = {"cell": args.cell, "unit": unit}
     for name, rs in runs.items():
         summary[name] = dict(rate=quartiles([r["rate"] for r in rs]))
+        if "k2_max_abs_err" in ready[name]:
+            summary[name]["k2_max_abs_err"] = ready[name]["k2_max_abs_err"]
         if unit == "solves/s":
             summary[name].update(
                 median_ms=quartiles([r["median_ms"] for r in rs]),

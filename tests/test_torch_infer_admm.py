@@ -7,11 +7,16 @@ Pallas megakernel it replaces (``fused_infer_admm`` in interpret mode, as
 the card by the ``gpu``-marked tests (and by chip_smoke.py).
 """
 
+import importlib.util
+import os
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from torch_parity import (codebook, jpair, nmse_db, np_pair, require_cuda,
                           steer, tpair)
 from twoace_tpu.ops import pair_solver as jps
@@ -23,6 +28,7 @@ from twoace_tpu_torch.ops.cplx import LadderArrays, Pair
 from twoace_tpu_torch.ops.kernels import infer_admm as k3
 from twoace_tpu_torch.ops.prox import profile_ladder_arrays
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NT = NR = 4
 N = NT * NR
 M = 2 * N
@@ -194,27 +200,45 @@ def _meta_args(nt, nr, m, r=R, g=1, p=2):
             LadderArrays(meta(g * p, 4), meta(g * p, 4)))
 
 
-@pytest.mark.parametrize("nt, nr, m", [(16, 16, 1024), (16, 16, 3),
-                                       (32, 8, 4096), (4, 4, 32)])
+#: shapes the 16-CTA kernel runs: the solver's 16x16 at m 1024, Vs_M's m
+#: 3 (most CTAs own no row), two slices a CTA at nt 32, and the tests' 4x4
+#: (most CTAs own no column)
+RUN_SHAPES = [(16, 16, 1024), (16, 16, 3), (32, 8, 4096), (4, 4, 32)]
+#: shapes it cannot take: five slices a CTA, 32x32 (249 KB a CTA), r 40
+REJECTED = [(80, 16, R, "own 80 columns"), (32, 32, R, "shared memory"),
+            (16, 16, 40, "r <= 32")]
+
+
+@pytest.mark.parametrize("nt, nr, m", RUN_SHAPES)
 def test_wrapper_takes_the_shapes_the_16_cta_kernel_runs(nt, nr, m):
-    """The solver's 16x16 at m 1024 (also at r 32), Vs_M's m 3 (most
-    CTAs own no row), two slices a CTA at nt 32, and the tests' 4x4 (most
-    CTAs own no column) pass the checks; each CTA's shared memory fits
-    the card."""
+    """The shapes the kernel runs pass the wrapper's checks of its
+    arguments; whether a CTA's share fits is the kernel's own count,
+    held on the card by ``test_kernel_layout_fits_the_card``."""
     k3._check(*_meta_args(nt, nr, m), nt, nr)
-    assert k3.smem_bytes(R, nt, nr) <= k3.MAX_SMEM
-    assert k3.smem_bytes(32, 16, 16) <= k3.MAX_SMEM
-    assert k3.own_cols_max(nt, nr) == -(-nt // k3.CLUSTER) * nr
+    k3._check(*_meta_args(nt, nr, m, r=32), nt, nr)
 
 
-@pytest.mark.parametrize("nt, nr, r, match", [
-    (80, 16, R, "own 80 columns"),        # five slices a CTA
-    (32, 32, R, "shared memory"),         # 32x32: 249 KB a CTA
-    (16, 16, 40, "r <= 32"),
-])
+@pytest.mark.gpu
+@pytest.mark.parametrize("nt, nr, m", RUN_SHAPES)
+def test_kernel_layout_fits_the_card(nt, nr, m):
+    """The kernel's own shared-memory count (C ``twoace_infer_admm_smem``)
+    fits its limit at these shapes, at r 20 and r 32."""
+    require_cuda()
+    for r in (R, 32):
+        assert 0 < k3.smem_bytes(r, nt, nr) <= k3.smem_limit()
+        k3._check_fits(r, nt, nr)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nt, nr, r, match", REJECTED)
 def test_wrapper_rejects_what_the_16_cta_kernel_cannot_take(nt, nr, r, match):
+    """What the kernel cannot hold is refused before a launch, by the
+    argument checks (r) or by the kernel's own count of a CTA's columns
+    and shared memory."""
+    require_cuda()
     with pytest.raises(ValueError, match=match):
         k3._check(*_meta_args(nt, nr, 64, r=r), nt, nr)
+        k3._check_fits(r, nt, nr)
 
 
 def test_workspace_holds_lane_state_then_split_constants_per_group():
@@ -238,21 +262,72 @@ def test_workspace_holds_lane_state_then_split_constants_per_group():
     assert 4 * k3.split_floats(1024, 256) == 9961472
 
 
+@pytest.mark.parametrize("need, match", [
+    (-1, "own 80 columns"), (232448 + 4, "shared memory"),
+    (232448, None)], ids=["columns", "shared_memory", "fits"])
+def test_fit_check_raises_on_what_the_kernel_counts(monkeypatch, need,
+                                                    match):
+    """``_check_fits`` turns the kernel's own count (C
+    ``twoace_infer_admm_smem``: bytes, or -1 where a CTA would own too
+    many columns) into the wrapper's errors; here a stand-in library
+    reports it."""
+    lib = types.SimpleNamespace(
+        twoace_infer_admm_smem=lambda r, nt, nr: need,
+        twoace_infer_admm_smem_limit=lambda: 232448)
+    monkeypatch.setattr(k3._build, "library", lambda: lib)
+    if match is None:
+        k3._check_fits(R, 80, 16)
+    else:
+        with pytest.raises(ValueError, match=match):
+            k3._check_fits(R, 80, 16)
+
+
+@pytest.fixture(scope="module")
+def witness():
+    """scripts/torch_k3_witness.py as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_k3_witness", os.path.join(ROOT, "scripts",
+                                         "torch_k3_witness.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("m", chip_smoke.K3_COLUMN_MS)
+def test_per_column_pass_is_reproducible_over_the_held_trips(witness, m):
+    """chip_smoke.py holds K3's per-column pass at m 80 and m 3 over
+    K3_COLUMN_TRIPS trips only, where float32 reproduces the loop: from
+    phase 2's warm state (here on the CPU), the plain version and the
+    plain version with 3xTF32 products both stay within half of K3_RTOL
+    of the loop run in float64, with the same trips and converged
+    flags."""
+    cs = chip_smoke
+    (_, args, kw), = [c for c in cs.k3_cases(m, device="cpu")
+                      if not c[2]["scale_by_row"]]
+    kw = dict(kw, maxiter=cs.K3_COLUMN_TRIPS)
+    f64 = k3.infer_admm_plain(*cs.cast_args(args, torch.float64), **kw)
+    for run in (k3.infer_admm_plain(*args, **kw),
+                witness.emulated(*args, **kw)):
+        assert torch.equal(run[3], f64[3]) and torch.equal(run[2], f64[2])
+        assert cs.rel_err(run, f64) <= cs.K3_RTOL / 2
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("scale_by_row, nt, nr, m", [
-    (True, NT, NR, M), (False, NT, NR, M), (True, 16, 2, 8),
-    (False, 16, 2, 8), (True, 16, 4, 96)],
+@pytest.mark.parametrize("scale_by_row, nt, nr, m, trips", [
+    (True, NT, NR, M, 30), (False, NT, NR, M, 30), (True, 16, 2, 8, 30),
+    (False, 16, 2, 8, 30), (True, 16, 4, 96, 30), (False, 16, 4, 96, 4)],
     ids=["scale_by_row-4x4_m32", "per_column-4x4_m32",
          "scale_by_row-nt16_m8", "per_column-nt16_m8",
-         "scale_by_row-nt16_m96"])
-def test_k3_kernel_matches_plain_on_card(scale_by_row, nt, nr, m):
+         "scale_by_row-nt16_m96", "per_column-nt16_m96"])
+def test_k3_kernel_matches_plain_on_card(scale_by_row, nt, nr, m, trips):
     """K3 against its plain version on the card, two groups of two lanes
     (G = 2, P = 2), a tolerance that stops some lanes early: at the
     tests' 4x4 (12 of the 16 CTAs own no column), at nt 16 (one slice a
     CTA) with m 8 below the cluster's 16 CTAs (half of them own no row),
-    and at nt 16 with m 96 (six rows a CTA) in the first pass; the
-    per-column pass from this cold start at m 96 is not reproducible in
-    float32 (the plain version on the CPU and on the card part)."""
+    and at nt 16 with m 96 (six rows a CTA).  The per-column pass at m
+    96 is held over its first trips: from this cold start it amplifies
+    float32 rounding, so that later the plain version on the CPU and on
+    the card part too."""
     require_cuda()
     a, b, x0, static, at, bt, u, lad = _problem(lanes=2, nt=nt, nr=nr, m=m)
     a2, b2, x02, *_ = _problem(seed=3, lanes=2, nt=nt, nr=nr, m=m)
@@ -271,7 +346,8 @@ def test_k3_kernel_matches_plain_on_card(scale_by_row, nt, nr, m):
     args = [cuda(at), bt.cuda(), cuda(u), cuda(y0), cuda(z0), cuda(v0),
             torch.full((2, 2), 1e-3, device="cuda"),
             LadderArrays(lad4.ranks.cuda(), lad4.fracs.cuda())]
-    kw = dict(nt=nt, nr=nr, scale_by_row=scale_by_row, maxiter=30, **LOOP)
+    kw = dict(nt=nt, nr=nr, scale_by_row=scale_by_row, maxiter=trips,
+              **LOOP)
     before = kernels.fused_infer_admm.launches
     ox, oy, conv, it = kernels.fused_infer_admm(*args, **kw)
     torch.cuda.synchronize()

@@ -1065,6 +1065,17 @@ extern "C" int twoace_infer_admm(
   return (int)cudaGetLastError();
 }
 
+// The shared memory one CTA needs at this shape, in bytes (layout()), or
+// -1 if a CTA would own more than kMaxOwnCols columns of n; the launch
+// refuses both that and more than twoace_infer_admm_smem_limit() bytes.
+extern "C" int twoace_infer_admm_smem(int r, int nt, int nr) {
+  if (own_cols_max(nt, nr) > kMaxOwnCols) return -1;
+  return (int)(sizeof(float) * layout(r, nt, nr).total);
+}
+
+// The most shared memory a CTA of the kernel may take, in bytes.
+extern "C" int twoace_infer_admm_smem_limit() { return kMaxSmem; }
+
 // How many clusters of kC CTAs the card places at once for this shape's
 // shared memory (cudaOccupancyMaxActiveClusters), or a negative error.
 extern "C" int twoace_infer_admm_clusters(int r, int nt, int nr) {

@@ -39,6 +39,8 @@ SIGNATURES = {
     "twoace_zprox_t": [_P] * 10 + [_I, _I, _I, _I, _P],
     "twoace_infer_admm": [_P] * 21 + [_I] * 11 + [_F] * 3 + [_P],
     "twoace_infer_admm_clusters": [_I, _I, _I],
+    "twoace_infer_admm_smem": [_I, _I, _I],
+    "twoace_infer_admm_smem_limit": [],
     "twoace_pair_matmul_tc": [_P] * 6 + [_I] * 4 + [_P],
     "twoace_pair_matmul_rows": [_P] * 6 + [_I] * 5 + [_P],
     "twoace_prox_dual_rows": [_P] * 6 + [_L, _I, _I, _I, _P],

@@ -31,32 +31,22 @@ from .zprox import MAX_NR, zprox_t_plain
 CLUSTER = 16
 #: the kernel keeps at most this many rows r of a lane's state per tile
 MAX_R = 32
-#: n columns one CTA may own: ceil(nt / CLUSTER) slices of nr
-MAX_OWN_COLS = 64
-#: shared memory a block may use on the H100 (227 KB)
-MAX_SMEM = 232448
-#: the kernel's fixed shared memory in floats: a three-stage ring of
-#: 16384 floats a stage, 48 scalar slots, their gather (48 x CLUSTER) and
-#: totals, 2 x 128 column coefficients and 8 x 8 warp sums
-_SMEM_FIXED = 3 * 16384 + 48 + 48 * CLUSTER + 48 + 2 * 128 + 64
 
 
 def _round4(x: int) -> int:
     return (x + 3) // 4 * 4
 
 
-def own_cols_max(nt: int, nr: int) -> int:
-    """n columns the busiest CTA of a cluster owns."""
-    return -(-nt // CLUSTER) * nr
-
-
 def smem_bytes(r: int, nt: int, nr: int) -> int:
-    """Shared memory of one CTA; matches ``layout`` in the kernel: the
-    fixed part, five (r, own columns) complex planes (Z, N, A^H Y, X,
-    Zin), the panel-Gram partial and the Z-prox chain's matrices."""
-    floats = (_SMEM_FIXED + _round4(10 * r * own_cols_max(nt, nr))
-              + _round4(2 * nr * nr) + _round4(8 * nr * nr + 2 * nr + 8))
-    return 4 * floats
+    """Shared memory one CTA needs at this shape, in bytes, as the kernel
+    lays it out (C ``twoace_infer_admm_smem``), or -1 where a CTA would own
+    more columns of n than the kernel takes."""
+    return _build.library().twoace_infer_admm_smem(r, nt, nr)
+
+
+def smem_limit() -> int:
+    """The most shared memory a CTA of the kernel may take, in bytes."""
+    return _build.library().twoace_infer_admm_smem_limit()
 
 
 def lane_floats(r: int, m: int, n: int) -> int:
@@ -115,13 +105,6 @@ def _check(a: Pair, b, u: Pair, y0: Pair, z0: Pair, v0: Pair, mu0,
         raise ValueError(f"the kernel takes 1 <= nr <= {MAX_NR}, got {nr}")
     if not 1 <= r <= MAX_R:
         raise ValueError(f"the kernel takes 1 <= r <= {MAX_R}, got {r}")
-    if own_cols_max(nt, nr) > MAX_OWN_COLS:
-        raise ValueError(f"a CTA of the {CLUSTER}-CTA cluster would own "
-                         f"{own_cols_max(nt, nr)} columns of n; the kernel "
-                         f"takes at most {MAX_OWN_COLS}")
-    if smem_bytes(r, nt, nr) > MAX_SMEM:
-        raise ValueError(f"the kernel would need {smem_bytes(r, nt, nr)} B "
-                         f"of shared memory a CTA, above {MAX_SMEM}")
     levels = ladder.ranks.shape[-1]
     lanes = g_ * p_
     _build.check_inputs({"a.re": (a.re, (g_, m, n)), "a.im": (a.im, (g_, m, n)),
@@ -137,6 +120,20 @@ def _check(a: Pair, b, u: Pair, y0: Pair, z0: Pair, v0: Pair, mu0,
                          "ladder.ranks": (ladder.ranks, (lanes, levels)),
                          "ladder.fracs": (ladder.fracs, (lanes, levels))},
                         a.re.device)
+
+
+def _check_fits(r: int, nt: int, nr: int):
+    """Raise unless a CTA of the kernel's cluster can hold its share of
+    this shape: its columns of n and its shared memory, as the kernel
+    counts them."""
+    need = smem_bytes(r, nt, nr)
+    if need < 0:
+        raise ValueError(f"a CTA of the {CLUSTER}-CTA cluster would own "
+                         f"{-(-nt // CLUSTER) * nr} columns of n, more than "
+                         f"the kernel takes")
+    if need > smem_limit():
+        raise ValueError(f"the kernel would need {need} B of shared memory "
+                         f"a CTA, above {smem_limit()}")
 
 
 def fused_infer_admm(a: Pair, b, u: Pair, y0: Pair, z0: Pair, v0: Pair, mu0,
@@ -163,6 +160,7 @@ def fused_infer_admm(a: Pair, b, u: Pair, y0: Pair, z0: Pair, v0: Pair, mu0,
         raise ValueError(f"unsupported device {a.re.device}")
     _check(a, b, u, y0, z0, v0, mu0, ladder, nt, nr)
     g_, p_, r, m = y0.re.shape
+    _check_fits(r, nt, nr)
     n = a.re.shape[-1]
     lanes = g_ * p_
     k_opt = r if scale_by_row else 1
