@@ -347,6 +347,32 @@ def bound(n_bytes, flops):
             else dict(bound_ms=t_ops, bound_by="operations"))
 
 
+def k2_case(lanes, r, nt, nr, seed=0):
+    """K2's inputs at (lanes, r, nt x nr): z, a warm basis from a cold eigh
+    of a perturbed z, and three ladders mixed over the lanes: the normal
+    train-split one, the rank-1 one and the m >= 3n full-data one, each
+    padded with f = 0 levels."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = nt * nr
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    z = Pair(randn(lanes, r, n), randn(lanes, r, n))
+    zp = Pair(z.re + 0.05 * randn(lanes, r, n),
+              z.im + 0.05 * randn(lanes, r, n))
+    m = 4 * n
+    m_train = int(np.floor(m * 0.95))
+    ladders = [profile_ladder_arrays(nt, nr, m_train, n, False, device="cuda"),
+               profile_ladder_arrays(nt, nr, m_train, n, True, device="cuda"),
+               profile_ladder_arrays(nt, nr, m, n, False, device="cuda")]
+    pick = torch.arange(lanes, device="cuda") % 3
+    lad = LadderArrays(torch.stack([l.ranks for l in ladders])[pick],
+                       torch.stack([l.fracs for l in ladders])[pick])
+    _, v0 = zprox_t_plain(zp, None, nt, nr, lad)
+    return z, v0, lad
+
+
 def phase2_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
 

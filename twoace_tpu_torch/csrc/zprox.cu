@@ -30,6 +30,56 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+// ---- phase timer (built only with -DTWOACE_K2_PHASE_TIMER, by
+// scripts/torch_k2_phases.py): thread 0 of lane 0's block stamps
+// %globaltimer after each part, behind a barrier, and sums the nanoseconds
+// per slot over the launches until the host reads and clears them
+// (K2_LADDER_WARP, the ladder's own time on a warp of its own, stays 0
+// here: this chain runs the ladder on warp 0, inside K2_LADDER).
+enum K2Slot { K2_LOAD, K2_GRAM, K2_PROD, K2_ELEM, K2_LADDER, K2_APPLY,
+              K2_LADDER_WARP, K2_LAUNCHES, K2_SLOTS };
+#ifdef TWOACE_K2_PHASE_TIMER
+__device__ unsigned long long g_k2_phase[K2_SLOTS];
+__device__ __forceinline__ unsigned long long k2_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+// the chain's parts: its products, its elementwise steps, its ladder
+#define TWOACE_ZPROX_MARK_START                                      \
+  const bool zp_on = blockIdx.x == 0 && threadIdx.x == 0;            \
+  unsigned long long zp_acc[3] = {0, 0, 0}, zp_t = k2_now();
+#define TWOACE_ZPROX_MARK(part)                                      \
+  {                                                                  \
+    const unsigned long long zp_n = k2_now();                        \
+    zp_acc[part] += zp_n - zp_t;                                     \
+    zp_t = zp_n;                                                     \
+  }
+#define TWOACE_ZPROX_MARK_END                                        \
+  if (zp_on)                                                         \
+    for (int zp = 0; zp < 3; ++zp) g_k2_phase[K2_PROD + zp] += zp_acc[zp];
+#define K2_START()                                                   \
+  const bool k2_on = blockIdx.x == 0 && threadIdx.x == 0;            \
+  unsigned long long k2_t = k2_now()
+// a barrier, then the time since the last stamp into SLOT
+#define K2_STAMP(slot)                                               \
+  __syncthreads();                                                   \
+  if (k2_on) {                                                       \
+    const unsigned long long k2_n = k2_now();                        \
+    g_k2_phase[slot] += k2_n - k2_t;                                 \
+    k2_t = k2_n;                                                     \
+  }
+// restart the clock after a part timed by its own hooks
+#define K2_SKIP() k2_t = k2_now()
+#define K2_FINISH()                                                  \
+  if (k2_on) g_k2_phase[K2_LAUNCHES] += 1
+#else
+#define K2_START()
+#define K2_STAMP(slot)
+#define K2_SKIP()
+#define K2_FINISH()
+#endif
+
 #include "zprox_core.cuh"
 
 namespace {
@@ -51,12 +101,14 @@ __global__ void zprox_kernel(
   const long long zoff = (long long)lane * rows * nr;
   const float* wr = z_re + zoff;
   const float* wi = z_im + zoff;
+  K2_START();
 
   // V0 in the W-convention: conj of the E-convention basis
   for (int e = tid; e < nn; e += blockDim.x) {
     s.Vr[e] = v0_re[(long long)lane * nn + e];
     s.Vi[e] = -v0_im[(long long)lane * nn + e];
   }
+  K2_STAMP(K2_LOAD);
   // G = W^H W, one entry (p, q) per thread, rows streamed from global
   for (int e = tid; e < nn; e += blockDim.x) {
     const int p = e / nr, q = e - p * nr;
@@ -70,8 +122,10 @@ __global__ void zprox_kernel(
     s.Gr[e] = sr;
     s.Gi[e] = si;
   }
+  K2_STAMP(K2_GRAM);
   twoace::zprox_basis_delta(s, nr, ranks + lane * levels,
                             fracs + lane * levels, levels);
+  K2_SKIP();
   // W' = W + W D, rows streamed from global again; neighbouring threads
   // write neighbouring addresses
   float* onr = zn_re + zoff;
@@ -93,6 +147,8 @@ __global__ void zprox_kernel(
     vn_re[(long long)lane * nn + e] = s.Vr[e];
     vn_im[(long long)lane * nn + e] = -s.Vi[e];
   }
+  K2_STAMP(K2_APPLY);
+  K2_FINISH();
 }
 
 }  // namespace
@@ -110,3 +166,16 @@ extern "C" int twoace_zprox_t(
       rows, nr, levels);
   return (int)cudaGetLastError();
 }
+
+#ifdef TWOACE_K2_PHASE_TIMER
+// The phase timer's sums since the last read (K2_SLOTS values:
+// nanoseconds per slot, then lane 0's launches), copied to out and
+// cleared.
+extern "C" int twoace_zprox_phases(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_k2_phase,
+                                         sizeof(unsigned long long) * K2_SLOTS);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zero[K2_SLOTS] = {};
+  return (int)cudaMemcpyToSymbol(g_k2_phase, zero, sizeof(zero));
+}
+#endif
