@@ -118,6 +118,13 @@ M_TRAIN = int(np.floor(M * 0.95))            # 972, the first-pass train split
 LANES = SOLVE_BATCH * RESTARTS               # 192
 K1_TOL = dict(rtol=1e-5, atol=1e-6)
 K2_ATOL = 5e-5
+#: K2's shapes (lanes, r, nt, nr): the batch solve's (64 channels x 3
+#: restarts, r 20, 16x16), the warm rank-1 trackers' one lane at r 1, the
+#: 32x32 point of BENCH_full32_r05.json (16 x 3 restarts, r 20: W is 160 KB
+#: a lane, streamed through shared memory) and a ragged one (rows 24, not
+#: a multiple of 16)
+K2_SHAPES = ((LANES, R, NT, NR), (1, 1, NT, NR), (48, R, 32, 32),
+             (3, 3, 8, 8))
 #: K3 against its plain version: max |difference| over max |plain| of
 #: opt_x and opt_y after K3_TRIPS trips.  Measured 5e-6 to 7e-6 on the
 #: H100 (chip run, PR 2).  The check starts from a warm lane state (50
@@ -373,6 +380,76 @@ def k2_case(lanes, r, nt, nr, seed=0):
     return z, v0, lad
 
 
+def phase2_k2():
+    """K2 against its plain version at K2_SHAPES, each entry of both
+    outputs within K2_ATOL (the batch shape also moved by its ladders:
+    the check is not vacuous), with events, the profiler's device time,
+    the plain version's time and the bounds: z, v0 and the ladder read and
+    both outputs written once, and the Gram's, the chain's six and the
+    apply's complex products (6 flops a complex multiply-add, the
+    Karatsuba 3M form) as 3xTF32 on the tensor cores; then the phase
+    timer's split of a launch at the first two shapes
+    (``scripts/torch_k2_phases.py``)."""
+    import tempfile
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "scripts"))
+    from torch_k2_phases import build_timer_lib, fmt_split, phase_split
+    from twoace_tpu_torch.ops.kernels.zprox import plan as k2_plan
+
+    out = {}
+    for lanes, r, nt, nr in K2_SHAPES:
+        z, v0, lad = k2_case(lanes, r, nt, nr)
+        zn, vn = fused_zprox_t(z, v0, nt, nr, lad)
+        zn0, vn0 = zprox_t_plain(z, v0, nt, nr, lad)
+        torch.cuda.synchronize()
+        for got, want in ((zn.re, zn0.re), (zn.im, zn0.im), (vn.re, vn0.re),
+                          (vn.im, vn0.im)):
+            torch.testing.assert_close(got, want, rtol=0.0, atol=K2_ATOL)
+        err = max_err([zn.re, zn.im, vn.re, vn.im],
+                      [zn0.re, zn0.im, vn0.re, vn0.im])
+        moved = float((zn.re - z.re).abs().max())
+        if (lanes, r, nt, nr) == K2_SHAPES[0] and moved < 1e-2:
+            raise RuntimeError(f"K2 check is vacuous: the ladder moved z by "
+                               f"only {moved:.2e}")
+        ms = cuda_ms(lambda: fused_zprox_t(z, v0, nt, nr, lad))
+        plain = cuda_ms(lambda: zprox_t_plain(z, v0, nt, nr, lad))
+        dev = device_ms(lambda: fused_zprox_t(z, v0, nt, nr, lad))
+        rows = r * nt
+        flops = 6 * lanes * (2 * rows * nr * nr + 6 * nr ** 3)
+        t_bytes = nbytes(z, v0, lad, zn, vn) / PEAK_BYTES * 1e3
+        t_tf32 = 3 * flops / PEAK_TF32 * 1e3
+        bnd = (dict(bound_ms=t_bytes, bound_by="bytes") if t_bytes >= t_tf32
+               else dict(bound_ms=t_tf32, bound_by="operations"))
+        share = (f"{100 * bnd['bound_ms'] / dev:.1f}% of the "
+                 f"{bnd['bound_by']} bound" if dev else "not measured")
+        pl = k2_plan(rows, nr)
+        staged = (f"W resident in {pl['chunks']} chunk(s)" if pl["resident"]
+                  else f"W streamed in {pl['chunks']} chunks of "
+                       f"{pl['chunk']} rows")
+        print(f"[2 K2 fused_zprox_t] lanes {lanes} r {r} nt {nt} nr {nr} "
+              f"(rows {rows}; {staged}, {pl['smem']} B of shared memory a "
+              f"block): max_abs_err {err:.3e} (tol {K2_ATOL}; the ladder "
+              f"moved z by {moved:.3f}) | kernel {ms:.4f} ms (events), "
+              f"device {fmt_ms(dev)} per launch (profiler) | plain "
+              f"{plain:.4f} ms | bounds: bytes {t_bytes:.6f} ms, 3xTF32 "
+              f"{t_tf32:.6f} ms | roofline share {share}", flush=True)
+        out[(lanes, r, nt, nr)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, device_ms=dev, **bnd,
+            library_ms=None)
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = build_timer_lib(tmp)
+        for lanes, r, nt, nr in K2_SHAPES[:2]:
+            z, v0, lad = k2_case(lanes, r, nt, nr)
+            split = phase_split(lib, lambda: fused_zprox_t(z, v0, nt, nr,
+                                                           lad))
+            print(f"[2 K2 phases] lanes {lanes} r {r} nt {nt} nr {nr}, timer "
+                  f"build, lane 0: {fmt_split(split)}", flush=True)
+    first = dict(out[K2_SHAPES[0]])
+    first["max_abs_err"] = max(o["max_abs_err"] for o in out.values())
+    return first
+
+
 def phase2_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -422,40 +499,7 @@ def phase2_kernels():
         device_ms=times[(M_TRAIN, False)][2],
         **bound(k1_bytes, 16 * LANES * R * M_TRAIN), library_ms=None)
 
-    # K2: warm basis from a cold eigh of a perturbed z; the lanes mix the
-    # normal train-split ladder (one f = 0 pad), the rank-1 ladder (three
-    # pads) and the m >= 3n full-data ladder (three pads)
-    z = Pair(randn(LANES, R, N), randn(LANES, R, N))
-    zp = Pair(z.re + 0.05 * randn(LANES, R, N), z.im + 0.05 * randn(LANES, R, N))
-    ladders = [profile_ladder_arrays(NT, NR, M_TRAIN, N, False, device="cuda"),
-               profile_ladder_arrays(NT, NR, M_TRAIN, N, True, device="cuda"),
-               profile_ladder_arrays(NT, NR, M, N, False, device="cuda")]
-    pick = torch.arange(LANES, device="cuda") % 3
-    lad = LadderArrays(torch.stack([l.ranks for l in ladders])[pick],
-                       torch.stack([l.fracs for l in ladders])[pick])
-    _, v0 = zprox_t_plain(zp, None, NT, NR, lad)
-    zn, vn = fused_zprox_t(z, v0, NT, NR, lad)
-    zn0, vn0 = zprox_t_plain(z, v0, NT, NR, lad)
-    torch.cuda.synchronize()
-    for got, want in ((zn.re, zn0.re), (zn.im, zn0.im), (vn.re, vn0.re),
-                      (vn.im, vn0.im)):
-        torch.testing.assert_close(got, want, rtol=0.0, atol=K2_ATOL)
-    err = max_err([zn.re, zn.im, vn.re, vn.im], [zn0.re, zn0.im, vn0.re,
-                                                  vn0.im])
-    moved = float((zn.re - z.re).abs().max())
-    if moved < 1e-2:
-        raise RuntimeError(f"K2 check is vacuous: the ladder moved z by "
-                           f"only {moved:.2e}")
-    ms = cuda_ms(lambda: fused_zprox_t(z, v0, NT, NR, lad))
-    plain = cuda_ms(lambda: zprox_t_plain(z, v0, NT, NR, lad))
-    print(f"[2 K2 fused_zprox_t] lanes {LANES} r {R} nt=nr={NR}: "
-          f"max_abs_err {err:.3e} (ladder moved z by {moved:.3f}) | kernel "
-          f"{ms:.4f} ms | plain {plain:.4f} ms", flush=True)
-    rows = R * NT
-    k2_flops = LANES * (2 * rows * NR * NR * 8 + 7 * NR ** 3 * 8)
-    summary["fused_zprox_t"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain,
-        **bound(nbytes(z, v0, lad, zn, vn), k2_flops), library_ms=None)
+    summary["fused_zprox_t"] = phase2_k2()
     summary["pair_matmul"] = phase2_k4()
     summary["fused_prox_dual"] = phase2_k5()
     summary["pair_chain_mm"] = phase2_k6()

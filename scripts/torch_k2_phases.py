@@ -9,10 +9,13 @@ shared memory, spills), then builds a second copy of ``zprox.cu`` with
 ``-DTWOACE_K2_PHASE_TIMER`` (``_build.NVCC_FLAGS`` plus the macro, into a
 temporary directory; the normal build never sets it).  In that build,
 thread 0 of lane 0's block stamps ``%globaltimer`` after each part of a
-launch and sums the nanoseconds per slot: loading W, the Gram, the
-chain's products, its elementwise steps and its ladder (the time thread
-0 waits for it), and the delta apply with the stores; ``ladder warp`` is
-the ladder's own time on the warp that runs it, beside the products.
+launch and sums the nanoseconds per slot: waiting for W's chunks (and the
+other warps) in the Gram's loop, its own Gram steps, the sum of the
+warps' partial Grams, the chain's products, its elementwise steps and its
+ladder (the time thread 0 waits for it), the delta apply and the stores
+of V and W' (in a streamed launch the apply's waits and stores count as
+apply); ``ladder warp`` is the ladder's own time on the warp that runs
+it, beside the products.
 Each shape is ``lanes,r,nt,nr`` (``chip_smoke.k2_case``: a warm basis
 and the phase-2 ladder mix); for each it prints the microseconds a launch
 per slot beside the normal build's CUDA-event and profiler device time
@@ -34,8 +37,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from twoace_tpu_torch.ops.kernels import _build  # noqa: E402
 
 #: the timer's slots, in csrc/zprox.cu's K2Slot order, then the launches
-SLOTS = ("load", "gram", "chain products", "chain elementwise",
-         "chain ladder", "apply", "ladder warp")
+SLOTS = ("load", "gram", "reduce", "chain products", "chain elementwise",
+         "chain ladder", "apply", "store", "ladder warp")
 #: slots that overlap others: the ladder's own time on its warp
 INSIDE = ("ladder warp",)
 MACRO = "-DTWOACE_K2_PHASE_TIMER"
@@ -53,7 +56,7 @@ def build_timer_lib(tmpdir):
                     src], check=True, capture_output=True, text=True,
                    timeout=600)
     lib = ctypes.CDLL(out)
-    for name in ("twoace_zprox_t", "twoace_zprox_smem"):
+    for name in ("twoace_zprox_t", "twoace_zprox_plan"):
         fn = getattr(lib, name, None)
         if fn is not None:
             fn.argtypes = _build.SIGNATURES[name]

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from torch_parity import (assert_pair_close, jpair, np_pair, rand_pair_np,
                           require_cuda, tpair)
 from twoace_tpu.ops import cplx as jc
@@ -256,17 +257,33 @@ def test_prox_dual_kernel_matches_plain_on_card(per_entry):
         torch.testing.assert_close(g.im, w.im, rtol=1e-5, atol=1e-6)
 
 
+#: K2's shapes on the card: chip_smoke.py's K2_SHAPES (phase 2), then odd
+#: ones: nr 6 (4-byte copies), nr 20 (six tiles, K unsplit), nr 3 at 15
+#: rows, and 16x16 at r 200 (3200 rows: W streamed)
+K2_CARD_SHAPES = [*chip_smoke.K2_SHAPES, (3, 5, 4, 6), (2, 6, 4, 20),
+                  (3, 5, 3, 3), (2, 200, 16, 16)]
+
+
 @pytest.mark.gpu
-def test_zprox_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("shape", [None, *K2_CARD_SHAPES])
+def test_zprox_kernel_matches_plain_on_card(shape):
+    """K2 against its plain version at K2_ATOL: on the JAX-made inputs of
+    the CPU tests (shape None), and at the phase-2 and odd shapes on
+    chip_smoke.k2_case's inputs."""
     require_cuda()
-    z, v0 = _zprox_inputs()
-    lad = profile_ladder_arrays(8, 8, 128, 64, False, device="cuda")
-    lad = LadderArrays(lad.ranks.expand(3, -1).contiguous(),
-                       lad.fracs.expand(3, -1).contiguous())
-    zt, vt = tpair(*z, device="cuda"), tpair(*v0, device="cuda")
-    zn, vn = kernels.fused_zprox_t(zt, vt, 8, 8, lad)
+    if shape is None:
+        nt = nr = 8
+        z, v0 = _zprox_inputs()
+        lad = profile_ladder_arrays(8, 8, 128, 64, False, device="cuda")
+        lad = LadderArrays(lad.ranks.expand(3, -1).contiguous(),
+                           lad.fracs.expand(3, -1).contiguous())
+        zt, vt = tpair(*z, device="cuda"), tpair(*v0, device="cuda")
+    else:
+        lanes, r, nt, nr = shape
+        zt, vt, lad = chip_smoke.k2_case(lanes, r, nt, nr)
+    zn, vn = kernels.fused_zprox_t(zt, vt, nt, nr, lad)
     torch.cuda.synchronize()
-    zn0, vn0 = kernels.zprox_t_plain(zt, vt, 8, 8, lad)
+    zn0, vn0 = kernels.zprox_t_plain(zt, vt, nt, nr, lad)
     for g, w in ((zn, zn0), (vn, vn0)):
-        torch.testing.assert_close(g.re, w.re, rtol=0, atol=5e-5)
-        torch.testing.assert_close(g.im, w.im, rtol=0, atol=5e-5)
+        torch.testing.assert_close(g.re, w.re, rtol=0, atol=chip_smoke.K2_ATOL)
+        torch.testing.assert_close(g.im, w.im, rtol=0, atol=chip_smoke.K2_ATOL)

@@ -1,5 +1,5 @@
 // 3xTF32 tensor-core products and cp.async copies, shared by K4
-// (pair_matmul.cu) and K3 (infer_admm.cu).
+// (pair_matmul.cu), K3 (infer_admm.cu) and K2 (zprox.cu, zprox_core.cuh).
 //
 // Precision: every float32 operand x is split into TF32 halves
 // big = rna(x) and small = rna(x - big), and each real product is
@@ -80,6 +80,44 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// mma_tf32 without `volatile`: a pure function of its operands, which the
+// compiler may schedule among independent work (K2 and the Z-prox chain,
+// where a warp's tiles are latency-bound)
+__device__ __forceinline__ void mma_tf32_nv(float* c, const uint32_t* a,
+                                            const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One k8 step of a complex m16 x n8 tile in 3xTF32, Karatsuba 3M: for
+// each of the three real products p (A's (re, re + im, im - re) halves
+// against B's (re + im, im, re) halves), small*big, big*small and big*big
+// summed from zero on the tensor cores and flushed into acc[p] in
+// float32, the three products' chains interleaved step by step.  For the
+// short products of K2 and the Z-prox chain.
+__device__ __forceinline__ void mma3_step(float (&acc)[3][4],
+                                          const uint32_t (&ab)[3][4],
+                                          const uint32_t (&as)[3][4],
+                                          const uint32_t (&bb)[3][2],
+                                          const uint32_t (&bs)[3][2]) {
+  float d[3][4];
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) d[p][q] = 0.0f;
+#pragma unroll
+  for (int step = 0; step < 3; ++step)
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+      mma_tf32_nv(d[p], step == 0 ? as[p] : ab[p], step == 1 ? bs[p] : bb[p]);
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[p][q] += d[p][q];
 }
 
 // c += a b in 3xTF32, the small terms first: the three products are

@@ -4,7 +4,7 @@
 // (body _zprox_kernel) and ::fused_zprox_batch (body _zprox_batch_kernel).
 // The batched Pallas kernel packed 128/nr instances block-diagonally into
 // one 128x128 MXU tile; here the batch is simply the grid: block b owns
-// lane b, and every per-lane nr x nr matrix lives in its shared memory.
+// lane b.
 //
 // Per lane, on W = z.reshape(r*nt, nr) (a free view of the transposed
 // state, whose Gram W^H W is the conjugate of the panel Gram E E^H):
@@ -13,31 +13,52 @@
 // The basis arrives and leaves in the E-convention and is conjugated to the
 // W-convention here, as the Pallas wrapper does at its boundary.
 //
-// What bounds it on the H100: neither flops nor bytes but latency.  Per lane
-// it streams W (r*nt*nr complex, 51 KB at r = 20, 16x16) twice from global
-// memory -- once for the Gram, once for the delta apply -- and runs a chain
-// of seven dependent nr x nr complex products and two block reductions, each
-// separated by a barrier.  Design: only nr x nr matrices are kept in shared
-// memory (8 of them plus two nr-vectors: 8 KB at nr = 16, 33 KB at nr = 32,
-// under the 48 KB default, no opt-in), the chain's products 3xTF32 on the
-// tensor cores and its ladder on one warp (zprox_core.cuh, shared with K3),
-// and one block per lane so the 192 lanes of the main path fill the 132
-// SMs.
+// What bounds it on the H100: the bytes of W, read once and written once
+// (80 KB a lane at r 20, 16x16; 4.7 us for the batch solve's 192 lanes at
+// 3.35 TB/s), and the latency of the chain between them.  Design:
+//  - W is staged into shared memory once, by 16-byte cp.async copies from
+//    every thread in up to four commit groups (chunks of rows), so the
+//    Gram starts on the first chunk while the rest arrive; the Gram and
+//    the apply both run from that copy.  A staged row is padded to a
+//    stride of 4 mod 8 floats, which keeps both products' fragment loads
+//    free of bank conflicts.  Where W does not fit the block's 227 KB
+//    (nr 32 at large r), 64-row chunks stream through a two-stage ring,
+//    and the apply reads them again (from L2) while the chain runs.
+//  - The Gram runs on the tensor cores in 3xTF32 (tf32x3.cuh: each k8
+//    step's three products summed from zero and flushed into float32,
+//    Karatsuba 3M), an m16 x n8 tile of G a warp and K = rows split over
+//    the warps left over; the warps' partials are summed in a fixed order,
+//    with no atomics, and made Hermitian, 0.5 (G + G^H), as the plain
+//    version's hermitian_part.
+//  - The apply W' = W + W D runs on the tensor cores too, an m16 row tile
+//    a warp over all nr columns, written back in place and stored with
+//    16-byte stores to neighbouring addresses.
+//  - The chain (zprox_core.cuh, shared with K3) runs on seven warps with
+//    the ladder on the eighth beside them.  It runs once a launch, so its
+//    instruction fetch counts: one copy of its product serves all six.
+// Shared memory: the staged W, the Gram's partials (8 nr^2 floats at
+// nr <= 16) and the chain's nr x nr matrices: 66.2 KB at r 20, 16x16, so
+// two blocks share an SM.
 //
 // Plain C interface, loaded with ctypes.  Launches on the caller's stream,
 // allocates nothing, and returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 // ---- phase timer (built only with -DTWOACE_K2_PHASE_TIMER, by
 // scripts/torch_k2_phases.py): thread 0 of lane 0's block stamps
-// %globaltimer after each part, behind a barrier, and sums the nanoseconds
-// per slot over the launches until the host reads and clears them
-// (K2_LADDER_WARP, the ladder's own time on a warp of its own, stays 0
-// here: this chain runs the ladder on warp 0, inside K2_LADDER).
-enum K2Slot { K2_LOAD, K2_GRAM, K2_PROD, K2_ELEM, K2_LADDER, K2_APPLY,
-              K2_LADDER_WARP, K2_LAUNCHES, K2_SLOTS };
+// %globaltimer after each part and sums the nanoseconds per slot over the
+// launches until the host reads and clears them.  K2_LOAD is the time it
+// waits for W's chunks (and the other warps) in the Gram's loop, K2_GRAM
+// its own Gram steps, K2_REDUCE the sum of the warps' partials; K2_LADDER
+// the time the product warp waits for the ladder's coefficients;
+// K2_APPLY the apply up to its last barrier, K2_STORE the stores of V and
+// W'; K2_LADDER_WARP the ladder's own time on its warp (lane 0 of that
+// warp), beside the products.
+enum K2Slot { K2_LOAD, K2_GRAM, K2_REDUCE, K2_PROD, K2_ELEM, K2_LADDER,
+              K2_APPLY, K2_STORE, K2_LADDER_WARP, K2_LAUNCHES, K2_SLOTS };
 #ifdef TWOACE_K2_PHASE_TIMER
 __device__ unsigned long long g_k2_phase[K2_SLOTS];
 __device__ __forceinline__ unsigned long long k2_now() {
@@ -58,23 +79,31 @@ __device__ __forceinline__ unsigned long long k2_now() {
 #define TWOACE_ZPROX_MARK_END                                        \
   if (zp_on)                                                         \
     for (int zp = 0; zp < 3; ++zp) g_k2_phase[K2_PROD + zp] += zp_acc[zp];
+#define TWOACE_ZPROX_LADDER_BEGIN const unsigned long long zl_t = k2_now();
+#define TWOACE_ZPROX_LADDER_END                                      \
+  if (blockIdx.x == 0 && (threadIdx.x & 31) == 0)                    \
+    g_k2_phase[K2_LADDER_WARP] += k2_now() - zl_t;
 #define K2_START()                                                   \
   const bool k2_on = blockIdx.x == 0 && threadIdx.x == 0;            \
   unsigned long long k2_t = k2_now()
-// a barrier, then the time since the last stamp into SLOT
-#define K2_STAMP(slot)                                               \
-  __syncthreads();                                                   \
+// the time since the last stamp into SLOT
+#define K2_MARK(slot)                                                \
   if (k2_on) {                                                       \
     const unsigned long long k2_n = k2_now();                        \
     g_k2_phase[slot] += k2_n - k2_t;                                 \
     k2_t = k2_n;                                                     \
   }
+// a barrier, then the same
+#define K2_STAMP(slot)                                               \
+  __syncthreads();                                                   \
+  K2_MARK(slot)
 // restart the clock after a part timed by its own hooks
 #define K2_SKIP() k2_t = k2_now()
 #define K2_FINISH()                                                  \
   if (k2_on) g_k2_phase[K2_LAUNCHES] += 1
 #else
 #define K2_START()
+#define K2_MARK(slot)
 #define K2_STAMP(slot)
 #define K2_SKIP()
 #define K2_FINISH()
@@ -85,70 +114,496 @@ __device__ __forceinline__ unsigned long long k2_now() {
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxSmem = 232448;        // the H100's 227 KB a block
+constexpr int kMaxChunks = 4;           // commit groups of a resident W
+constexpr int kStreamRows = 64;         // rows of a streamed chunk
 
-__global__ void zprox_kernel(
+__host__ __device__ inline int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// The Gram's units: its m16 x n16 blocks (1 at nr <= 16, else 4), a warp
+// each, the block's other warps splitting K with them: at most
+// kWarps / units K slices, and no more than W has k8 steps
+__host__ __device__ inline int gram_units(int nr) {
+  const int b = (nr + 15) / 16;
+  return b * b;
+}
+__host__ __device__ inline int gram_slices(int nr, int rows) {
+  const int most = kWarps / gram_units(nr), steps = (rows + 7) / 8;
+  return steps < 1 ? 1 : steps < most ? steps : most;
+}
+
+// How a launch stages W; host and device compute it alike, and
+// ops/kernels/zprox.py::plan mirrors it.
+struct Plan {
+  int stride;     // floats a staged row: >= nr, 4 mod 8 (no bank conflicts)
+  int chunk;      // rows a chunk, a multiple of 16
+  int chunks;     // chunks of W
+  int stages;     // chunks held at once: all (resident) or 2 (streamed)
+  int resident;   // 1: W is read once and kept for the apply
+  int scratch;    // floats of the Gram's partial sums, one set a K slice
+                  // (rows padded to nr + 1: the sum reads them transposed)
+  int smem;       // bytes of shared memory a block
+};
+
+__host__ __device__ inline Plan make_plan(int rows, int nr) {
+  Plan p;
+  p.stride = (nr + 3) / 8 * 8 + 4;
+  p.scratch = kWarps / gram_units(nr) * 2 * nr * (nr + 1);
+  const int fixed =
+      p.scratch + round_up(twoace::zprox_smem_floats(nr, kThreads), 4);
+  p.chunk = round_up((rows + kMaxChunks - 1) / kMaxChunks, 16);
+  if (p.chunk < 16) p.chunk = 16;
+  p.chunks = (rows + p.chunk - 1) / p.chunk;
+  p.stages = p.chunks > 1 ? p.chunks : 1;
+  p.resident = 1;
+  if (4LL * (2LL * p.stages * p.chunk * p.stride + fixed) > kMaxSmem) {
+    p.chunk = kStreamRows;
+    p.chunks = (rows + kStreamRows - 1) / kStreamRows;
+    p.stages = 2;
+    p.resident = 0;
+  }
+  p.smem = 4 * (2 * p.stages * p.chunk * p.stride + fixed);
+  return p;
+}
+
+// wait until at most n (0 ... 3) of this thread's commit groups are pending
+__device__ __forceinline__ void cp_wait_upto(int n) {
+  if (n <= 0)
+    twoace::cp_wait<0>();
+  else if (n == 1)
+    twoace::cp_wait<1>();
+  else if (n == 2)
+    twoace::cp_wait<2>();
+  else
+    twoace::cp_wait<3>();
+}
+
+// copies of W's rows [row0, row0 + chunk) into a staged chunk (rows past
+// `rows` zero-filled): 16 bytes a copy where a row is whole 16-byte words
+// (vec), else 4 bytes
+__device__ __forceinline__ void issue_chunk(float* sr, float* si,
+                                            const float* wr, const float* wi,
+                                            int row0, int chunk, int rows,
+                                            int nr, int stride, bool vec) {
+  if (vec) {
+    const int q4 = nr >> 2;
+    for (int e = threadIdx.x; e < chunk * q4; e += kThreads) {
+      const int k = e / q4, q = e - k * q4;
+      const bool ok = row0 + k < rows;
+      const long long g = ok ? (long long)(row0 + k) * nr + 4 * q : 0;
+      twoace::cp16(sr + k * stride + 4 * q, wr + g, ok);
+      twoace::cp16(si + k * stride + 4 * q, wi + g, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < chunk * nr; e += kThreads) {
+      const int k = e / nr, q = e - k * nr;
+      const bool ok = row0 + k < rows;
+      const long long g = ok ? (long long)(row0 + k) * nr + q : 0;
+      twoace::cp4(sr + k * stride + q, wr + g, ok);
+      twoace::cp4(si + k * stride + q, wi + g, ok);
+    }
+  }
+}
+
+// rows [0, n) of a staged chunk to W' rows [row0, row0 + n)
+__device__ __forceinline__ void store_rows(const float* sr, const float* si,
+                                           float* outr, float* outi,
+                                           int row0, int n, int nr,
+                                           int stride, bool vec) {
+  if (vec) {
+    const int q4 = nr >> 2;
+    for (int e = threadIdx.x; e < n * q4; e += kThreads) {
+      const int k = e / q4, q = e - k * q4;
+      const long long g = (long long)(row0 + k) * nr + 4 * q;
+      *reinterpret_cast<float4*>(outr + g) =
+          *reinterpret_cast<const float4*>(sr + k * stride + 4 * q);
+      *reinterpret_cast<float4*>(outi + g) =
+          *reinterpret_cast<const float4*>(si + k * stride + 4 * q);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n * nr; e += kThreads) {
+      const int k = e / nr, q = e - k * nr;
+      const long long g = (long long)(row0 + k) * nr + q;
+      outr[g] = sr[k * stride + q];
+      outi[g] = si[k * stride + q];
+    }
+  }
+}
+
+// This warp's part of G = W^H W over the staged rows [0, n) of a chunk:
+// its m16 x n16 block (i0, j0) of G as two n8 tiles that share A's
+// fragments, over the chunk's k8 steps st0, st0 + ksplit, ...  Within a
+// step, thread tig reads rows 2 tig and 2 tig + 1 as k = tig and tig + 4
+// (any order of k sums the same terms), so A's and B's fragments both
+// come from W's rows without bank conflicts.  On the diagonal (i0 == j0)
+// B's elements are A's own, and so are two of B's three halves:
+// split(x) and, with its sign bits flipped, split(-(x + y)).
+__device__ __forceinline__ void gram_chunk(const float* sr, const float* si,
+                                           int n, int nr, int stride,
+                                           int i0, int j0, int st0,
+                                           int ksplit,
+                                           float (&acc)[2][3][4]) {
+  const int lane = threadIdx.x & 31, grp = lane >> 2, tig = lane & 3;
+  const bool same = i0 == j0, two = j0 + 8 < nr;
+  for (int st = st0; st * 8 < n; st += ksplit) {
+    const int r0 = st * 8 + 2 * tig;
+    // A = W^H: a0 (i grp, k tig), a1 (grp + 8, tig), a2 (grp, tig + 4),
+    // a3 (grp + 8, tig + 4) are conj W[r0 + (q >> 1)][i0 + grp + 8 (q & 1)]
+    float xr[4], xi[4];
+    uint32_t ab[3][4], as[3][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int col = i0 + grp + (q & 1) * 8, o = (r0 + (q >> 1)) * stride;
+      xr[q] = col < nr ? sr[o + col] : 0.0f;
+      xi[q] = col < nr ? si[o + col] : 0.0f;
+      twoace::split(xr[q], ab[0][q], as[0][q]);
+      twoace::split(xr[q] - xi[q], ab[1][q], as[1][q]);
+      twoace::split(-(xr[q] + xi[q]), ab[2][q], as[2][q]);
+    }
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      if (t == 1 && !two) break;
+      // B = W: b0 (k tig, n grp), b1 (k tig + 4, grp), halves of
+      // (re + im, im, re)
+      uint32_t bb[3][2], bs[3][2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (same) {
+          const int qa = 2 * q + t;             // A's element (r0 + q, col)
+          bb[0][q] = ab[2][qa] ^ 0x80000000u;
+          bs[0][q] = as[2][qa] ^ 0x80000000u;
+          twoace::split(xi[qa], bb[1][q], bs[1][q]);
+          bb[2][q] = ab[0][qa];
+          bs[2][q] = as[0][qa];
+        } else {
+          const int col = j0 + t * 8 + grp, o = (r0 + q) * stride;
+          const float x = col < nr ? sr[o + col] : 0.0f;
+          const float y = col < nr ? si[o + col] : 0.0f;
+          twoace::split(x + y, bb[0][q], bs[0][q]);
+          twoace::split(y, bb[1][q], bs[1][q]);
+          twoace::split(x, bb[2][q], bs[2][q]);
+        }
+      }
+      twoace::mma3_step(acc[t], ab, as, bb, bs);
+    }
+  }
+}
+
+// A's fragments of the apply at k step k0: W's staged rows as
+// a0 (row grp, k tig), a1 (grp + 8, tig), a2 (grp, tig + 4),
+// a3 (grp + 8, tig + 4), split as (re, re + im, im - re)
+__device__ __forceinline__ void apply_a(const float* sr, const float* si,
+                                        int i0, int k0, int nr, int stride,
+                                        uint32_t (&ab)[3][4],
+                                        uint32_t (&as)[3][4]) {
+  const int lane = threadIdx.x & 31, grp = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int k = k0 + tig + (q >> 1) * 4;
+    const int o = (i0 + grp + (q & 1) * 8) * stride + k;
+    const float x = k < nr ? sr[o] : 0.0f, y = k < nr ? si[o] : 0.0f;
+    twoace::split(x, ab[0][q], as[0][q]);
+    twoace::split(x + y, ab[1][q], as[1][q]);
+    twoace::split(y - x, ab[2][q], as[2][q]);
+  }
+}
+
+// B's fragments of the apply at k step k0, n8 tile j0: D's b0 (k tig,
+// n grp), b1 (k tig + 4, grp), from D split once (split_d)
+__device__ __forceinline__ void apply_b(const uint32_t* dsp, int k0, int j0,
+                                        int nr, uint32_t (&bb)[3][2],
+                                        uint32_t (&bs)[3][2]) {
+  const int lane = threadIdx.x & 31, grp = lane >> 2, tig = lane & 3;
+  const int nn = nr * nr;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int p = k0 + tig + q * 4, j = j0 + grp;
+    const bool ok = p < nr && j < nr;
+    const int e = p * nr + j;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      bb[c][q] = ok ? dsp[2 * c * nn + e] : 0u;
+      bs[c][q] = ok ? dsp[(2 * c + 1) * nn + e] : 0u;
+    }
+  }
+}
+
+// D (in s.P) split once for the apply, as B's (re + im, im, re) halves:
+// six planes of nn words from s.Vr on (V, G and P itself; V has been
+// written out).  Each thread reads and writes only its own entries.
+__device__ __forceinline__ void split_d(const twoace::ZproxSmem& s, int nr) {
+  const int nn = nr * nr;
+  uint32_t* dsp = reinterpret_cast<uint32_t*>(s.Vr);
+  for (int e = threadIdx.x; e < nn; e += kThreads) {
+    const float x = s.Pr[e], y = s.Pi[e];
+    uint32_t big, small;
+    twoace::split(x + y, big, small);
+    dsp[e] = big;
+    dsp[nn + e] = small;
+    twoace::split(y, big, small);
+    dsp[2 * nn + e] = big;
+    dsp[3 * nn + e] = small;
+    twoace::split(x, big, small);
+    dsp[4 * nn + e] = big;
+    dsp[5 * nn + e] = small;
+  }
+}
+
+// W' = W + W D into the staged rows, for the m16 x n8 tile (i0, j0) whose
+// sums are acc: c0, c1 (row grp, cols 2 tig, 2 tig + 1), c2, c3 (row
+// grp + 8)
+__device__ __forceinline__ void apply_out(float* sr, float* si, int i0,
+                                          int j0, int nr, int stride,
+                                          const float (&acc)[3][4]) {
+  const int lane = threadIdx.x & 31, grp = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int j = j0 + tig * 2 + (q & 1);
+    if (j >= nr) continue;
+    const int o = (i0 + grp + (q >> 1) * 8) * stride + j;
+    sr[o] = sr[o] + (acc[0][q] - acc[1][q]);
+    si[o] = si[o] + (acc[0][q] + acc[2][q]);
+  }
+}
+
+// W' = W + W D on the staged rows [0, n), written back in place.  Called
+// by every thread.  Few rows (at most 8 m16 x n8 tiles of W'): one tile a
+// warp, all of them read before any is written.  Else an m16 row tile a
+// warp, with all of its TN >= ceil(nr / 8) n8 tiles at once: the warp
+// reads only its own rows, all of them before it writes.
+template <int TN>
+__device__ __forceinline__ void apply_rows(float* sr, float* si, int n,
+                                           int nr, int stride,
+                                           const uint32_t* dsp) {
+  const int warp = threadIdx.x >> 5;
+  const int nt8 = (nr + 7) >> 3, rtiles = (n + 15) >> 4;
+  if (rtiles * nt8 <= kWarps) {
+    const bool mine = warp < rtiles * nt8;
+    const int i0 = (warp / nt8) * 16, j0 = (warp % nt8) * 8;
+    float acc[3][4];
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[p][q] = 0.0f;
+    if (mine) {
+#pragma unroll
+      for (int kk = 0; kk < TN; ++kk) {
+        if (kk * 8 >= nr) break;
+        uint32_t ab[3][4], as[3][4], bb[3][2], bs[3][2];
+        apply_a(sr, si, i0, kk * 8, nr, stride, ab, as);
+        apply_b(dsp, kk * 8, j0, nr, bb, bs);
+        twoace::mma3_step(acc, ab, as, bb, bs);
+      }
+    }
+    __syncthreads();
+    if (mine) apply_out(sr, si, i0, j0, nr, stride, acc);
+    return;
+  }
+  for (int tile = warp; tile < rtiles; tile += kWarps) {
+    const int i0 = tile * 16;
+    float acc[TN][3][4];
+#pragma unroll
+    for (int t = 0; t < TN; ++t)
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[t][p][q] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < TN; ++kk) {
+      if (kk * 8 >= nr) break;
+      uint32_t ab[3][4], as[3][4];
+      apply_a(sr, si, i0, kk * 8, nr, stride, ab, as);
+#pragma unroll
+      for (int t = 0; t < TN; ++t) {
+        if (t * 8 >= nr) break;
+        uint32_t bb[3][2], bs[3][2];
+        apply_b(dsp, kk * 8, t * 8, nr, bb, bs);
+        twoace::mma3_step(acc[t], ab, as, bb, bs);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int t = 0; t < TN; ++t)
+      if (t * 8 < nr) apply_out(sr, si, i0, t * 8, nr, stride, acc[t]);
+  }
+}
+
+// TN: n8 tiles of the apply, 2 (nr <= 16) or 4 (nr <= 32)
+template <int TN>
+__global__ void __launch_bounds__(kThreads, 2) zprox_kernel(
     const float* __restrict__ z_re, const float* __restrict__ z_im,
     const float* __restrict__ v0_re, const float* __restrict__ v0_im,
     const float* __restrict__ ranks, const float* __restrict__ fracs,
     float* __restrict__ zn_re, float* __restrict__ zn_im,
     float* __restrict__ vn_re, float* __restrict__ vn_im,
-    int rows, int nr, int levels) {
-  extern __shared__ float smem[];
-  const twoace::ZproxSmem s = twoace::zprox_smem(smem, nr);
+    int rows, int nr, int levels, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const Plan pl = make_plan(rows, nr);
+  const int S = pl.stride, CH = pl.chunk, P = pl.stages;
+  float* Wr = smem;
+  float* Wi = Wr + P * CH * S;
+  float* gpart = Wi + P * CH * S;        // the Gram's partials
+  const twoace::ZproxSmem s = twoace::zprox_smem(gpart + pl.scratch, nr);
   const int nn = nr * nr;
   const int lane = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const long long zoff = (long long)lane * rows * nr;
   const float* wr = z_re + zoff;
   const float* wi = z_im + zoff;
   K2_START();
 
+  // W's first P chunks (all of a resident W), a commit group each
+  for (int c = 0; c < P; ++c) {
+    if (c < pl.chunks)
+      issue_chunk(Wr + c * CH * S, Wi + c * CH * S, wr, wi, c * CH, CH,
+                  rows, nr, S, vec);
+    twoace::cp_commit();
+  }
   // V0 in the W-convention: conj of the E-convention basis
-  for (int e = tid; e < nn; e += blockDim.x) {
+  for (int e = tid; e < nn; e += kThreads) {
     s.Vr[e] = v0_re[(long long)lane * nn + e];
     s.Vi[e] = -v0_im[(long long)lane * nn + e];
   }
-  K2_STAMP(K2_LOAD);
-  // G = W^H W, one entry (p, q) per thread, rows streamed from global
-  for (int e = tid; e < nn; e += blockDim.x) {
-    const int p = e / nr, q = e - p * nr;
-    float sr = 0.0f, si = 0.0f;
-    for (int k = 0; k < rows; ++k) {
-      const float ar = wr[k * nr + p], ai = wi[k * nr + p];
-      const float br = wr[k * nr + q], bi = wi[k * nr + q];
-      sr += ar * br + ai * bi;
-      si += ar * bi - ai * br;
+
+  // G = W^H W: warp (u, ks) takes m16 x n16 block u of G over K slice ks
+  // (the k8 steps ks, ks + ksplit, ... of W, across the chunks)
+  const int units = gram_units(nr), ksplit = gram_slices(nr, rows);
+  const bool gram_warp = warp < units * ksplit;
+  const int u = warp % units, ks = warp / units;
+  const int nb = (nr + 15) >> 4;
+  const int i0 = (u / nb) * 16, j0 = (u % nb) * 16;
+  float acc[2][3][4];
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[t][p][q] = 0.0f;
+  for (int c = 0; c < pl.chunks; ++c) {
+    cp_wait_upto(P - 1);                 // chunk c has landed
+    __syncthreads();
+    K2_MARK(K2_LOAD);
+    const int b = c % P;
+    if (gram_warp)
+      gram_chunk(Wr + b * CH * S, Wi + b * CH * S, min(CH, rows - c * CH),
+                 nr, S, i0, j0, (ks + ksplit - (c * CH / 8) % ksplit) % ksplit,
+                 ksplit, acc);
+    K2_MARK(K2_GRAM);
+    if (!pl.resident) {
+      __syncthreads();                   // stage b is free again
+      if (c + P < pl.chunks)
+        issue_chunk(Wr + b * CH * S, Wi + b * CH * S, wr, wi, (c + P) * CH,
+                    CH, rows, nr, S, vec);
     }
-    s.Gr[e] = sr;
-    s.Gi[e] = si;
+    twoace::cp_commit();
   }
-  K2_STAMP(K2_GRAM);
-  twoace::zprox_basis_delta(s, nr, ranks + lane * levels,
-                            fracs + lane * levels, levels);
+  // streamed: the apply's first chunks come back (from L2) during the chain
+  if (!pl.resident) {
+    for (int c = 0; c < P; ++c) {
+      if (c < pl.chunks)
+        issue_chunk(Wr + c * CH * S, Wi + c * CH * S, wr, wi, c * CH, CH,
+                    rows, nr, S, vec);
+      twoace::cp_commit();
+    }
+  }
+  // the partials, then their sum over the K slices in order, Hermitian
+  const int pn = nr * (nr + 1);
+  if (gram_warp) {
+    const int grp = (tid & 31) >> 2, tig = tid & 3;
+    float* mine = gpart + ks * 2 * pn;
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = i0 + grp + (q >> 1) * 8;
+        const int j = j0 + t * 8 + tig * 2 + (q & 1);
+        if (i < nr && j < nr) {
+          mine[i * (nr + 1) + j] = acc[t][0][q] - acc[t][1][q];
+          mine[pn + i * (nr + 1) + j] = acc[t][0][q] + acc[t][2][q];
+        }
+      }
+  }
+  __syncthreads();
+  for (int e = tid; e < nn; e += kThreads) {
+    const int i = e / nr, j = e - i * nr;
+    const int ep = i * (nr + 1) + j, et = j * (nr + 1) + i;
+    float gr = 0.0f, gi = 0.0f, tr = 0.0f, ti = 0.0f;
+    for (int k = 0; k < ksplit; ++k) {
+      const float* part = gpart + k * 2 * pn;
+      gr += part[ep];
+      gi += part[pn + ep];
+      tr += part[et];
+      ti += part[pn + et];
+    }
+    s.Gr[e] = 0.5f * (gr + tr);
+    s.Gi[e] = 0.5f * (gi - ti);
+  }
+  K2_STAMP(K2_REDUCE);
+  twoace::zprox_basis_delta(s, nr, ranks + (long long)lane * levels,
+                            fracs + (long long)lane * levels, levels);
   K2_SKIP();
-  // W' = W + W D, rows streamed from global again; neighbouring threads
-  // write neighbouring addresses
-  float* onr = zn_re + zoff;
-  float* oni = zn_im + zoff;
-  for (long long e = tid; e < (long long)rows * nr; e += blockDim.x) {
-    const int k = (int)(e / nr), q = (int)(e - (long long)k * nr);
-    float sr = 0.0f, si = 0.0f;
-    for (int p = 0; p < nr; ++p) {
-      const float ar = wr[k * nr + p], ai = wi[k * nr + p];
-      const float br = s.Pr[p * nr + q], bi = s.Pi[p * nr + q];
-      sr += ar * br - ai * bi;
-      si += ar * bi + ai * br;
-    }
-    onr[e] = wr[e] + sr;
-    oni[e] = wi[e] + si;
-  }
   // new basis back in the E-convention
-  for (int e = tid; e < nn; e += blockDim.x) {
+  for (int e = tid; e < nn; e += kThreads) {
     vn_re[(long long)lane * nn + e] = s.Vr[e];
     vn_im[(long long)lane * nn + e] = -s.Vi[e];
   }
-  K2_STAMP(K2_APPLY);
+  __syncthreads();
+  // W' = W + W D, D in s.P split once
+  split_d(s, nr);
+  __syncthreads();
+  const uint32_t* dsp = reinterpret_cast<const uint32_t*>(s.Vr);
+  float* onr = zn_re + zoff;
+  float* oni = zn_im + zoff;
+  if (pl.resident) {
+    apply_rows<TN>(Wr, Wi, rows, nr, S, dsp);
+    __syncthreads();
+    K2_MARK(K2_APPLY);
+    store_rows(Wr, Wi, onr, oni, 0, rows, nr, S, vec);
+  } else {
+    for (int c = 0; c < pl.chunks; ++c) {
+      cp_wait_upto(P - 1);
+      __syncthreads();
+      const int b = c % P, n = min(CH, rows - c * CH);
+      apply_rows<TN>(Wr + b * CH * S, Wi + b * CH * S, n, nr, S, dsp);
+      __syncthreads();
+      store_rows(Wr + b * CH * S, Wi + b * CH * S, onr, oni, c * CH, n, nr, S,
+                 vec);
+      __syncthreads();                   // stage b is free again
+      if (c + P < pl.chunks)
+        issue_chunk(Wr + b * CH * S, Wi + b * CH * S, wr, wi, (c + P) * CH,
+                    CH, rows, nr, S, vec);
+      twoace::cp_commit();
+    }
+  }
+  K2_STAMP(K2_STORE);
   K2_FINISH();
+}
+
+template <int TN>
+int launch(const float* z_re, const float* z_im, const float* v0_re,
+           const float* v0_im, const float* ranks, const float* fracs,
+           float* zn_re, float* zn_im, float* vn_re, float* vn_im, int lanes,
+           int rows, int nr, int levels, int vec, int smem,
+           cudaStream_t stream) {
+  // the opt-in above 48 KB, once a device
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > 48 * 1024 && !(dev < 64 && opted[dev])) {
+    err = cudaFuncSetAttribute(zprox_kernel<TN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) opted[dev] = true;
+  }
+  zprox_kernel<TN><<<lanes, kThreads, smem, stream>>>(
+      z_re, z_im, v0_re, v0_im, ranks, fracs, zn_re, zn_im, vn_re, vn_im,
+      rows, nr, levels, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -159,12 +614,29 @@ extern "C" int twoace_zprox_t(
     float* zn_re, float* zn_im, float* vn_re, float* vn_im, int lanes,
     int rows, int nr, int levels, void* stream) {
   if (lanes == 0) return 0;
-  if (nr < 1 || nr > 32) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * twoace::zprox_smem_floats(nr, kThreads);
-  zprox_kernel<<<lanes, kThreads, smem, (cudaStream_t)stream>>>(
-      z_re, z_im, v0_re, v0_im, ranks, fracs, zn_re, zn_im, vn_re, vn_im,
-      rows, nr, levels);
-  return (int)cudaGetLastError();
+  if (nr < 1 || nr > 32 || rows < 0) return (int)cudaErrorInvalidValue;
+  const Plan p = make_plan(rows, nr);
+  if (p.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int vec = nr % 4 == 0 && twoace::aligned16(z_re) &&
+                  twoace::aligned16(z_im) && twoace::aligned16(zn_re) &&
+                  twoace::aligned16(zn_im);
+  if (nr <= 16)
+    return launch<2>(z_re, z_im, v0_re, v0_im, ranks, fracs, zn_re, zn_im,
+                     vn_re, vn_im, lanes, rows, nr, levels, vec, p.smem,
+                     (cudaStream_t)stream);
+  return launch<4>(z_re, z_im, v0_re, v0_im, ranks, fracs, zn_re, zn_im,
+                   vn_re, vn_im, lanes, rows, nr, levels, vec, p.smem,
+                   (cudaStream_t)stream);
+}
+
+// The staging plan at (rows, nr), for the tests: stride, chunk, chunks,
+// stages, resident, scratch, smem into out[0 ... 6].
+extern "C" int twoace_zprox_plan(int rows, int nr, int* out) {
+  const Plan p = make_plan(rows, nr);
+  const int v[7] = {p.stride, p.chunk, p.chunks, p.stages, p.resident,
+                    p.scratch, p.smem};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
 }
 
 #ifdef TWOACE_K2_PHASE_TIMER

@@ -154,7 +154,7 @@ def magnitude_prox_cols_elem(ax: Pair, b, m_dual: Pair, mu) -> Pair:
 
 def eigh_update_perturbative_pair(g: Pair, v0: Pair, ns_steps: int = 1,
                                   rel_gap: float = 1e-3,
-                                  max_norm: float = 0.7):
+                                  max_norm: float = 0.7, mm=matmul):
     """Warm eigenbasis refinement of a Hermitian pair ``g`` (..., n, n).
 
     Rotate ``g' = v0^H g v0``, apply the first-order anti-Hermitian
@@ -162,9 +162,10 @@ def eigh_update_perturbative_pair(g: Pair, v0: Pair, ns_steps: int = 1,
     Frobenius-capped at ``max_norm``), ``v = v0 (I + C)``, then
     ``ns_steps`` Newton-Schulz re-unitarizations.  Returns ``(lam, v)``
     with lam the UNSORTED Rayleigh estimates aligned with v's columns.
+    ``mm`` computes every product (K2's emulation passes its own).
     """
     n = g.shape[-1]
-    gr = matmul_herm_t(v0, matmul(g, v0))
+    gr = mm(conj(transpose(v0)), mm(g, v0))
     lam = torch.diagonal(gr.re, dim1=-2, dim2=-1)
     gap = lam[..., None, :] - lam[..., :, None]              # l_j - l_i
     mag = lam[..., None, :].abs() + lam[..., :, None].abs()
@@ -178,11 +179,11 @@ def eigh_update_perturbative_pair(g: Pair, v0: Pair, ns_steps: int = 1,
                                keepdim=True))
     capped = torch.clamp(max_norm / torch.clamp(fro, min=1e-30), max=1.0)
     c = scale(c, capped)
-    v = add(v0, matmul(v0, c))
+    v = add(v0, mm(v0, c))
     eye = torch.eye(n, dtype=v.re.dtype, device=v.re.device)
     for _ in range(ns_steps):
-        vtv = matmul_herm_t(v, v)
-        v = matmul(v, Pair(1.5 * eye - 0.5 * vtv.re, -0.5 * vtv.im))
+        vtv = mm(conj(transpose(v)), v)
+        v = mm(v, Pair(1.5 * eye - 0.5 * vtv.re, -0.5 * vtv.im))
     return lam, v
 
 

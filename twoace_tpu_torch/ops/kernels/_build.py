@@ -37,6 +37,7 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "twoace_prox_dual_t": [_P] * 10 + [_I, _I, _I, _I, _P],
     "twoace_zprox_t": [_P] * 10 + [_I, _I, _I, _I, _P],
+    "twoace_zprox_plan": [_I, _I, _P],
     "twoace_infer_admm": [_P] * 21 + [_I] * 11 + [_F] * 3 + [_P],
     "twoace_infer_admm_clusters": [_I, _I, _I],
     "twoace_infer_admm_smem": [_I, _I, _I],

@@ -5,6 +5,11 @@ Port of ``twoace_tpu.ops.pallas.kernels.fused_zprox_t`` and its batched
 form ``fused_zprox_batch``, with the ladder as per-lane runtime tensors.
 A CPU tensor takes the plain version :func:`zprox_t_plain`; a CUDA tensor
 launches the kernel or raises.
+
+The kernel stages a lane's W in shared memory once (streamed in 64-row
+chunks where it does not fit, :func:`plan`) and runs the Gram, the
+chain's products and the apply in 3xTF32 on the tensor cores;
+:func:`zprox_t_emulated` repeats that arithmetic in plain torch.
 """
 
 from __future__ import annotations
@@ -13,11 +18,94 @@ import torch
 
 from ..cplx import (Pair, LadderArrays, add, conj, eigh_desc,
                     eigh_update_perturbative_pair, hermitian_part,
-                    ladder_scales, matmul, matmul_herm_t, scale, transpose)
+                    ladder_scales, matmul, scale, transpose)
 from . import _build
+from .pair_matmul import round_tf32
 
 #: the kernel keeps one thread's ladder state in 32-entry registers
 MAX_NR = 32
+#: the kernel's block (csrc/zprox.cu): threads, and the shared memory a
+#: block may opt into on the H100
+THREADS = 256
+MAX_SMEM = 232448
+#: a resident W is staged in at most this many chunks (commit groups); a
+#: W that does not fit streams in chunks of STREAM_ROWS rows, two at once
+MAX_CHUNKS = 4
+STREAM_ROWS = 64
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def chain_tiles(nr: int) -> int:
+    """m16 x n8 tiles of an nr x nr product (``zprox_core.cuh``): one a
+    warp in the chain's products and in the Gram."""
+    return -(-nr // 16) * -(-nr // 8)
+
+
+def chain_warps(nr: int, warps: int = THREADS // 32) -> int:
+    """The chain's warps: all but the last, which runs the ladder beside
+    them, where the products have fewer tiles than the block has warps;
+    else all."""
+    return warps - 1 if chain_tiles(nr) < warps else warps
+
+
+def gram_units(nr: int) -> int:
+    """The Gram's m16 x n16 blocks, a warp each (``csrc/zprox.cu``)."""
+    b = -(-nr // 16)
+    return b * b
+
+
+def gram_slices(nr: int, rows: int) -> int:
+    """K slices of the Gram: the block's other warps split K with the
+    units' warps, no more slices than W has k8 steps."""
+    return max(1, min((THREADS // 32) // gram_units(nr), -(-rows // 8)))
+
+
+def chain_floats(nr: int) -> int:
+    """Floats of the chain's shared memory (``zprox_smem_floats``): eight
+    nr x nr matrices, two nr-vectors, one partial sum a warp."""
+    return 8 * nr * nr + 2 * nr + THREADS // 32
+
+
+def plan(rows: int, nr: int) -> dict:
+    """How the kernel stages a lane's W (rows x nr, both planes), as
+    ``make_plan`` in ``csrc/zprox.cu`` computes it: a row's stride in
+    floats (at least nr, 4 mod 8: no bank conflicts), the chunk's rows (a
+    multiple of 16), the chunks, the chunks held at once, whether W stays
+    resident (read once, kept for the apply) or streams through two
+    stages and is read again for the apply, the floats of the Gram's
+    partial sums (one set for each of the most K slices,
+    :func:`gram_slices`, rows padded to nr + 1) and the bytes of shared
+    memory a block."""
+    stride = (nr + 3) // 8 * 8 + 4
+    scratch = (THREADS // 32) // gram_units(nr) * 2 * nr * (nr + 1)
+    fixed = scratch + _round_up(chain_floats(nr), 4)
+    chunk = max(16, _round_up(-(-rows // MAX_CHUNKS), 16))
+    chunks = -(-rows // chunk)
+    stages, resident = max(chunks, 1), True
+    if 4 * (2 * stages * chunk * stride + fixed) > MAX_SMEM:
+        chunk, chunks = STREAM_ROWS, -(-rows // STREAM_ROWS)
+        stages, resident = 2, False
+    return dict(stride=stride, chunk=chunk, chunks=chunks, stages=stages,
+                resident=resident, scratch=scratch,
+                smem=4 * (2 * stages * chunk * stride + fixed))
+
+
+def _zprox_t(z: Pair, v0, nr: int, ladder: LadderArrays, mm, gram):
+    lanes = z.re.shape[0]
+    w = Pair(z.re.reshape(lanes, -1, nr), z.im.reshape(lanes, -1, nr))
+    g = hermitian_part(gram(w))
+    if v0 is None:
+        lam, v = eigh_desc(g)
+    else:
+        lam, v = eigh_update_perturbative_pair(g, conj(v0), mm=mm)
+    coeff = torch.sqrt(ladder_scales(torch.clamp(lam, min=0.0), ladder)) - 1.0
+    delta = mm(scale(v, coeff[..., None, :]), conj(transpose(v)))
+    w_new = add(w, mm(w, delta))
+    return (Pair(w_new.re.reshape(z.re.shape), w_new.im.reshape(z.im.shape)),
+            conj(v))
 
 
 def zprox_t_plain(z: Pair, v0, nt: int, nr: int, ladder: LadderArrays):
@@ -29,18 +117,44 @@ def zprox_t_plain(z: Pair, v0, nt: int, nr: int, ladder: LadderArrays):
     ``v0`` (lanes, nr, nr) E-convention, or None for the cold start from
     ``eigh``.  Returns ``(z_new, v_new)`` with v_new in the E-convention.
     """
-    lanes = z.re.shape[0]
-    w = Pair(z.re.reshape(lanes, -1, nr), z.im.reshape(lanes, -1, nr))
-    g = hermitian_part(matmul_herm_t(w, w))
-    if v0 is None:
-        lam, v = eigh_desc(g)
-    else:
-        lam, v = eigh_update_perturbative_pair(g, conj(v0))
-    coeff = torch.sqrt(ladder_scales(torch.clamp(lam, min=0.0), ladder)) - 1.0
-    delta = matmul(scale(v, coeff[..., None, :]), conj(transpose(v)))
-    w_new = add(w, matmul(w, delta))
-    return (Pair(w_new.re.reshape(z.re.shape), w_new.im.reshape(z.im.shape)),
-            conj(v))
+    return _zprox_t(z, v0, nr, ladder, matmul,
+                    lambda w: matmul(conj(transpose(w)), w))
+
+
+def matmul_3xtf32(a: Pair, b: Pair, slices: int = 1) -> Pair:
+    """A B as the kernel's tensor-core products compute it: the Karatsuba
+    3M terms A.re (B.re + B.im), (A.re + A.im) B.im and (A.im - A.re) B.re,
+    each operand split into TF32 big + small, each k8 step's
+    small*big + big*small + big*big summed from zero and flushed into a
+    float32 sum per term; with ``slices`` > 1 the k8 steps are dealt round
+    robin to that many partial sums (the Gram's K slices over the warps),
+    each combined into (re, im), then added in slice order."""
+    k = a.re.shape[-1]
+    ka = (a.re, a.re + a.im, a.im - a.re)
+    kb = (b.re + b.im, b.im, b.re)
+    shape = (*torch.broadcast_shapes(a.re.shape[:-2], b.re.shape[:-2]),
+             a.re.shape[-2], b.re.shape[-1])
+    out = None
+    for s in range(slices):
+        acc = [a.re.new_zeros(shape) for _ in range(3)]
+        for k0 in range(8 * s, k, 8 * slices):
+            for p in range(3):
+                x, y = ka[p][..., k0:k0 + 8], kb[p][..., k0:k0 + 8, :]
+                xb, yb = round_tf32(x), round_tf32(y)
+                xs, ys = round_tf32(x - xb), round_tf32(y - yb)
+                acc[p] = acc[p] + ((xs @ yb + xb @ ys) + xb @ yb)
+        part = Pair(acc[0] - acc[1], acc[0] + acc[2])
+        out = part if out is None else add(out, part)
+    return out
+
+
+def zprox_t_emulated(z: Pair, v0, nt: int, nr: int, ladder: LadderArrays):
+    """:func:`zprox_t_plain` with the kernel's arithmetic: every product
+    (the Gram over its K slices, the chain's, the apply) in 3xTF32 with
+    each k8 step flushed (:func:`matmul_3xtf32`)."""
+    return _zprox_t(z, v0, nr, ladder, matmul_3xtf32,
+                    lambda w: matmul_3xtf32(conj(transpose(w)), w,
+                                            gram_slices(nr, w.re.shape[-2])))
 
 
 def _check(z: Pair, v0: Pair, nt: int, nr: int, ladder: LadderArrays):
