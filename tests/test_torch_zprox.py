@@ -19,7 +19,8 @@ from torch_parity import (assert_pair_close, jpair, rand_pair_np,
                           require_cuda, tpair)
 from twoace_tpu.ops.pallas import fused_zprox_t as pallas_zprox_t
 from twoace_tpu.ops.prox import profile_ladder
-from twoace_tpu_torch.ops.cplx import LadderArrays, Pair, matmul
+from twoace_tpu_torch.ops.cplx import (LadderArrays, Pair, conj,
+                                       hermitian_part, matmul, transpose)
 from twoace_tpu_torch.ops.kernels import zprox as k2
 from twoace_tpu_torch.ops.kernels.pair_matmul import round_tf32
 from twoace_tpu_torch.ops.prox import profile_ladder_arrays
@@ -71,12 +72,13 @@ def _dist(a, b):
                for x, y in zip(a, b))
 
 
-@pytest.mark.parametrize("m, k, n, slices", [
-    (16, 320, 16, 8), (32, 640, 32, 2), (16, 16, 16, 1), (8, 15, 8, 8)])
-def test_emulated_3xtf32_product_keeps_float32_accuracy(m, k, n, slices):
-    """The kernel's product (3xTF32, flushed each k8 step, K dealt over
-    slices) stands within 3x the float32 product's error of complex128,
-    where one TF32 product alone is a thousand times further off."""
+@pytest.mark.parametrize("m, k, n", [
+    (16, 320, 16), (32, 640, 32), (16, 16, 16), (8, 15, 8)])
+def test_emulated_3xtf32_product_keeps_float32_accuracy(m, k, n):
+    """The chain's and the apply's product (3xTF32, Karatsuba 3M, flushed
+    each k8 step) stands within 3x the float32 product's error of
+    complex128, where one TF32 product alone is a thousand times further
+    off."""
     rng = np.random.default_rng(1)
     a = tpair(*rand_pair_np(rng, 3, m, k))
     b = tpair(*rand_pair_np(rng, 3, k, n))
@@ -88,9 +90,31 @@ def test_emulated_3xtf32_product_keeps_float32_accuracy(m, k, n, slices):
 
     big = Pair(round_tf32(a.re), round_tf32(a.im))
     one = matmul(big, Pair(round_tf32(b.re), round_tf32(b.im)))
-    got, plain = err(k2.matmul_3xtf32(a, b, slices)), err(matmul(a, b))
+    got, plain = err(k2.matmul_3xtf32(a, b)), err(matmul(a, b))
     assert got <= 3 * plain and got < 1e-6
     assert err(one) > 1e-4
+
+
+@pytest.mark.parametrize("rows, nr, slices", [
+    (320, 16, 8), (640, 32, 2), (16, 16, 2), (15, 8, 2), (24, 8, 3)])
+def test_emulated_gram_is_hermitian_and_keeps_float32_accuracy(rows, nr,
+                                                               slices):
+    """The kernel's Gram (RR, II, RI in 3xTF32 over its K slices) made
+    Hermitian stands within 3x the float32 Gram's error of complex128."""
+    rng = np.random.default_rng(3)
+    w = tpair(*rand_pair_np(rng, 2, rows, nr))
+    wc = torch.complex(*_f64(w))
+    exact = wc.conj().transpose(-1, -2) @ wc
+    scale = float(exact.abs().max())
+
+    def err(p):
+        return float((torch.complex(*_f64(p)) - exact).abs().max()) / scale
+
+    got = hermitian_part(k2.gram_3xtf32(w, slices))
+    plain = hermitian_part(matmul(conj(transpose(w)), w))
+    assert err(got) <= 3 * err(plain) and err(got) < 1e-6
+    assert torch.equal(got.re, got.re.transpose(-1, -2))
+    assert torch.equal(got.im, -got.im.transpose(-1, -2))
 
 
 @pytest.mark.parametrize("lanes, r, nt, nr", SHAPES)
@@ -161,7 +185,7 @@ def test_plan_fits_every_shape_the_wrapper_takes(nr):
         assert p["stride"] >= nr and p["stride"] % 8 == 4
         assert p["chunk"] % 16 == 0 and p["chunk"] * p["chunks"] >= rows
         assert p["smem"] <= k2.MAX_SMEM
-        assert p["scratch"] == 8 // k2.gram_units(nr) * 2 * nr * (nr + 1)
+        assert p["scratch"] == 8 // k2.gram_units(nr) * 3 * nr * (nr + 1)
         if p["resident"]:
             assert p["stages"] == max(p["chunks"], 1) <= k2.MAX_CHUNKS
         else:

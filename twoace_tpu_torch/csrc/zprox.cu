@@ -25,20 +25,21 @@
 //    (nr 32 at large r), 64-row chunks stream through a two-stage ring,
 //    and the apply reads them again (from L2) while the chain runs.
 //  - The Gram runs on the tensor cores in 3xTF32 (tf32x3.cuh: each k8
-//    step's three products summed from zero and flushed into float32,
-//    Karatsuba 3M), an m16 x n8 tile of G a warp and K = rows split over
-//    the warps left over; the warps' partials are summed in a fixed order,
-//    with no atomics, and made Hermitian, 0.5 (G + G^H), as the plain
-//    version's hermitian_part.
+//    step's three products summed from zero and flushed into float32) as
+//    the real products Xr^T Xr, Xi^T Xi and Xr^T Xi, so each W element is
+//    split once a plane, an m16 x n16 block of G a warp and K = rows
+//    split over the block's other warps; the warps' partials are summed
+//    in a fixed order, with no atomics, and made Hermitian,
+//    0.5 (G + G^H), as the plain version's hermitian_part.
 //  - The apply W' = W + W D runs on the tensor cores too, an m16 row tile
 //    a warp over all nr columns, written back in place and stored with
 //    16-byte stores to neighbouring addresses.
 //  - The chain (zprox_core.cuh, shared with K3) runs on seven warps with
 //    the ladder on the eighth beside them.  It runs once a launch, so its
 //    instruction fetch counts: one copy of its product serves all six.
-// Shared memory: the staged W, the Gram's partials (8 nr^2 floats at
-// nr <= 16) and the chain's nr x nr matrices: 66.2 KB at r 20, 16x16, so
-// two blocks share an SM.
+// Shared memory: the staged W, the Gram's partials (24 nr (nr + 1) floats
+// at nr <= 16) and the chain's nr x nr matrices: 85.9 KB at r 20, 16x16,
+// so two blocks share an SM.
 //
 // Plain C interface, loaded with ctypes.  Launches on the caller's stream,
 // allocates nothing, and returns cudaGetLastError() after the launch.
@@ -143,15 +144,16 @@ struct Plan {
   int chunks;     // chunks of W
   int stages;     // chunks held at once: all (resident) or 2 (streamed)
   int resident;   // 1: W is read once and kept for the apply
-  int scratch;    // floats of the Gram's partial sums, one set a K slice
-                  // (rows padded to nr + 1: the sum reads them transposed)
+  int scratch;    // floats of the Gram's partial sums RR, II, RI, one set
+                  // a K slice (rows padded to nr + 1: the sum reads them
+                  // transposed)
   int smem;       // bytes of shared memory a block
 };
 
 __host__ __device__ inline Plan make_plan(int rows, int nr) {
   Plan p;
   p.stride = (nr + 3) / 8 * 8 + 4;
-  p.scratch = kWarps / gram_units(nr) * 2 * nr * (nr + 1);
+  p.scratch = kWarps / gram_units(nr) * 3 * nr * (nr + 1);
   const int fixed =
       p.scratch + round_up(twoace::zprox_smem_floats(nr, kThreads), 4);
   p.chunk = round_up((rows + kMaxChunks - 1) / kMaxChunks, 16);
@@ -233,14 +235,15 @@ __device__ __forceinline__ void store_rows(const float* sr, const float* si,
   }
 }
 
-// This warp's part of G = W^H W over the staged rows [0, n) of a chunk:
-// its m16 x n16 block (i0, j0) of G as two n8 tiles that share A's
-// fragments, over the chunk's k8 steps st0, st0 + ksplit, ...  Within a
-// step, thread tig reads rows 2 tig and 2 tig + 1 as k = tig and tig + 4
-// (any order of k sums the same terms), so A's and B's fragments both
-// come from W's rows without bank conflicts.  On the diagonal (i0 == j0)
-// B's elements are A's own, and so are two of B's three halves:
-// split(x) and, with its sign bits flipped, split(-(x + y)).
+// This warp's part of G = W^H W over the staged rows [0, n) of a chunk,
+// as the three real products RR = Xr^T Xr, II = Xi^T Xi and RI = Xr^T Xi
+// of W = Xr + i Xi (Re G = RR + II, Im G = RI - RI^T): its m16 x n16
+// block (i0, j0) of each as two n8 tiles that share A's fragments, over
+// the chunk's k8 steps st0, st0 + ksplit, ...  Each W element is split
+// once for each of its planes.  Within a step, thread tig reads rows
+// 2 tig and 2 tig + 1 as k = tig and tig + 4 (any order of k sums the same
+// terms), so A's and B's fragments both come from W's rows without bank
+// conflicts; on the diagonal (i0 == j0) B's elements are A's own.
 __device__ __forceinline__ void gram_chunk(const float* sr, const float* si,
                                            int n, int nr, int stride,
                                            int i0, int j0, int st0,
@@ -250,44 +253,53 @@ __device__ __forceinline__ void gram_chunk(const float* sr, const float* si,
   const bool same = i0 == j0, two = j0 + 8 < nr;
   for (int st = st0; st * 8 < n; st += ksplit) {
     const int r0 = st * 8 + 2 * tig;
-    // A = W^H: a0 (i grp, k tig), a1 (grp + 8, tig), a2 (grp, tig + 4),
-    // a3 (grp + 8, tig + 4) are conj W[r0 + (q >> 1)][i0 + grp + 8 (q & 1)]
-    float xr[4], xi[4];
-    uint32_t ab[3][4], as[3][4];
+    // A = Xr^T, Xi^T: a0 (i grp, k tig), a1 (grp + 8, tig), a2 (grp,
+    // tig + 4), a3 (grp + 8, tig + 4) are W[r0 + (q >> 1)][i0 + grp + 8 (q & 1)]
+    uint32_t ab[2][4], as[2][4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int col = i0 + grp + (q & 1) * 8, o = (r0 + (q >> 1)) * stride;
-      xr[q] = col < nr ? sr[o + col] : 0.0f;
-      xi[q] = col < nr ? si[o + col] : 0.0f;
-      twoace::split(xr[q], ab[0][q], as[0][q]);
-      twoace::split(xr[q] - xi[q], ab[1][q], as[1][q]);
-      twoace::split(-(xr[q] + xi[q]), ab[2][q], as[2][q]);
+      twoace::split(col < nr ? sr[o + col] : 0.0f, ab[0][q], as[0][q]);
+      twoace::split(col < nr ? si[o + col] : 0.0f, ab[1][q], as[1][q]);
     }
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
       if (t == 1 && !two) break;
-      // B = W: b0 (k tig, n grp), b1 (k tig + 4, grp), halves of
-      // (re + im, im, re)
-      uint32_t bb[3][2], bs[3][2];
+      // B = Xr, Xi: b0 (k tig, n grp), b1 (k tig + 4, grp)
+      uint32_t bb[2][2], bs[2][2];
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         if (same) {
           const int qa = 2 * q + t;             // A's element (r0 + q, col)
-          bb[0][q] = ab[2][qa] ^ 0x80000000u;
-          bs[0][q] = as[2][qa] ^ 0x80000000u;
-          twoace::split(xi[qa], bb[1][q], bs[1][q]);
-          bb[2][q] = ab[0][qa];
-          bs[2][q] = as[0][qa];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            bb[h][q] = ab[h][qa];
+            bs[h][q] = as[h][qa];
+          }
         } else {
           const int col = j0 + t * 8 + grp, o = (r0 + q) * stride;
-          const float x = col < nr ? sr[o + col] : 0.0f;
-          const float y = col < nr ? si[o + col] : 0.0f;
-          twoace::split(x + y, bb[0][q], bs[0][q]);
-          twoace::split(y, bb[1][q], bs[1][q]);
-          twoace::split(x, bb[2][q], bs[2][q]);
+          twoace::split(col < nr ? sr[o + col] : 0.0f, bb[0][q], bs[0][q]);
+          twoace::split(col < nr ? si[o + col] : 0.0f, bb[1][q], bs[1][q]);
         }
       }
-      twoace::mma3_step(acc[t], ab, as, bb, bs);
+      // RR, II, RI: small*big, big*small, big*big from zero, the three
+      // chains interleaved, flushed into acc
+      const int pa[3] = {0, 1, 0}, pb[3] = {0, 1, 1};
+      float d[3][4];
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) d[p][q] = 0.0f;
+#pragma unroll
+      for (int step = 0; step < 3; ++step)
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+          twoace::mma_tf32_nv(d[p], step == 0 ? as[pa[p]] : ab[pa[p]],
+                              step == 1 ? bs[pb[p]] : bb[pb[p]]);
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[t][p][q] += d[p][q];
     }
   }
 }
@@ -509,11 +521,13 @@ __global__ void __launch_bounds__(kThreads, 2) zprox_kernel(
       twoace::cp_commit();
     }
   }
-  // the partials, then their sum over the K slices in order, Hermitian
+  // the partials, then their sums over the K slices in order, and G made
+  // Hermitian as the plain version's hermitian_part: with Re = RR + II and
+  // Im = RI - RI^T, G = 0.5 (Re + Re^T) + i 0.5 (Im - Im^T)
   const int pn = nr * (nr + 1);
   if (gram_warp) {
     const int grp = (tid & 31) >> 2, tig = tid & 3;
-    float* mine = gpart + ks * 2 * pn;
+    float* mine = gpart + ks * 3 * pn;
 #pragma unroll
     for (int t = 0; t < 2; ++t)
 #pragma unroll
@@ -521,8 +535,9 @@ __global__ void __launch_bounds__(kThreads, 2) zprox_kernel(
         const int i = i0 + grp + (q >> 1) * 8;
         const int j = j0 + t * 8 + tig * 2 + (q & 1);
         if (i < nr && j < nr) {
-          mine[i * (nr + 1) + j] = acc[t][0][q] - acc[t][1][q];
-          mine[pn + i * (nr + 1) + j] = acc[t][0][q] + acc[t][2][q];
+#pragma unroll
+          for (int p = 0; p < 3; ++p)
+            mine[p * pn + i * (nr + 1) + j] = acc[t][p][q];
         }
       }
   }
@@ -530,16 +545,18 @@ __global__ void __launch_bounds__(kThreads, 2) zprox_kernel(
   for (int e = tid; e < nn; e += kThreads) {
     const int i = e / nr, j = e - i * nr;
     const int ep = i * (nr + 1) + j, et = j * (nr + 1) + i;
-    float gr = 0.0f, gi = 0.0f, tr = 0.0f, ti = 0.0f;
+    float rr = 0.0f, rrt = 0.0f, ii = 0.0f, iit = 0.0f, ri = 0.0f, rit = 0.0f;
     for (int k = 0; k < ksplit; ++k) {
-      const float* part = gpart + k * 2 * pn;
-      gr += part[ep];
-      gi += part[pn + ep];
-      tr += part[et];
-      ti += part[pn + et];
+      const float* part = gpart + k * 3 * pn;
+      rr += part[ep];
+      rrt += part[et];
+      ii += part[pn + ep];
+      iit += part[pn + et];
+      ri += part[2 * pn + ep];
+      rit += part[2 * pn + et];
     }
-    s.Gr[e] = 0.5f * (gr + tr);
-    s.Gi[e] = 0.5f * (gi - ti);
+    s.Gr[e] = 0.5f * ((rr + ii) + (rrt + iit));
+    s.Gi[e] = ri - rit;
   }
   K2_STAMP(K2_REDUCE);
   twoace::zprox_basis_delta(s, nr, ranks + (long long)lane * levels,

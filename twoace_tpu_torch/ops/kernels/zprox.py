@@ -76,11 +76,11 @@ def plan(rows: int, nr: int) -> dict:
     multiple of 16), the chunks, the chunks held at once, whether W stays
     resident (read once, kept for the apply) or streams through two
     stages and is read again for the apply, the floats of the Gram's
-    partial sums (one set for each of the most K slices,
+    partial sums RR, II and RI (one set for each of the most K slices,
     :func:`gram_slices`, rows padded to nr + 1) and the bytes of shared
     memory a block."""
     stride = (nr + 3) // 8 * 8 + 4
-    scratch = (THREADS // 32) // gram_units(nr) * 2 * nr * (nr + 1)
+    scratch = (THREADS // 32) // gram_units(nr) * 3 * nr * (nr + 1)
     fixed = scratch + _round_up(chain_floats(nr), 4)
     chunk = max(16, _round_up(-(-rows // MAX_CHUNKS), 16))
     chunks = -(-rows // chunk)
@@ -121,40 +121,52 @@ def zprox_t_plain(z: Pair, v0, nt: int, nr: int, ladder: LadderArrays):
                     lambda w: matmul(conj(transpose(w)), w))
 
 
-def matmul_3xtf32(a: Pair, b: Pair, slices: int = 1) -> Pair:
-    """A B as the kernel's tensor-core products compute it: the Karatsuba
-    3M terms A.re (B.re + B.im), (A.re + A.im) B.im and (A.im - A.re) B.re,
-    each operand split into TF32 big + small, each k8 step's
+def _steps_3xtf32(x: torch.Tensor, y: torch.Tensor, s: int,
+                  slices: int) -> torch.Tensor:
+    """x @ y over the k8 steps s, s + slices, ... as the tensor cores form
+    it in 3xTF32: each operand split into TF32 big + small, each step's
     small*big + big*small + big*big summed from zero and flushed into a
-    float32 sum per term; with ``slices`` > 1 the k8 steps are dealt round
-    robin to that many partial sums (the Gram's K slices over the warps),
-    each combined into (re, im), then added in slice order."""
-    k = a.re.shape[-1]
-    ka = (a.re, a.re + a.im, a.im - a.re)
-    kb = (b.re + b.im, b.im, b.re)
-    shape = (*torch.broadcast_shapes(a.re.shape[:-2], b.re.shape[:-2]),
-             a.re.shape[-2], b.re.shape[-1])
-    out = None
-    for s in range(slices):
-        acc = [a.re.new_zeros(shape) for _ in range(3)]
-        for k0 in range(8 * s, k, 8 * slices):
-            for p in range(3):
-                x, y = ka[p][..., k0:k0 + 8], kb[p][..., k0:k0 + 8, :]
-                xb, yb = round_tf32(x), round_tf32(y)
-                xs, ys = round_tf32(x - xb), round_tf32(y - yb)
-                acc[p] = acc[p] + ((xs @ yb + xb @ ys) + xb @ yb)
-        part = Pair(acc[0] - acc[1], acc[0] + acc[2])
-        out = part if out is None else add(out, part)
-    return out
+    float32 sum."""
+    shape = (*torch.broadcast_shapes(x.shape[:-2], y.shape[:-2]),
+             x.shape[-2], y.shape[-1])
+    acc = x.new_zeros(shape)
+    for k0 in range(8 * s, x.shape[-1], 8 * slices):
+        xk, yk = x[..., k0:k0 + 8], y[..., k0:k0 + 8, :]
+        xb, yb = round_tf32(xk), round_tf32(yk)
+        xs, ys = round_tf32(xk - xb), round_tf32(yk - yb)
+        acc = acc + ((xs @ yb + xb @ ys) + xb @ yb)
+    return acc
+
+
+def matmul_3xtf32(a: Pair, b: Pair) -> Pair:
+    """A B as the kernel's chain and apply form it: the Karatsuba 3M terms
+    A.re (B.re + B.im), (A.re + A.im) B.im and (A.im - A.re) B.re, each in
+    3xTF32 with every k8 step flushed."""
+    k1 = _steps_3xtf32(a.re, b.re + b.im, 0, 1)
+    k2 = _steps_3xtf32(a.re + a.im, b.im, 0, 1)
+    k3 = _steps_3xtf32(a.im - a.re, b.re, 0, 1)
+    return Pair(k1 - k2, k1 + k3)
+
+
+def gram_3xtf32(w: Pair, slices: int) -> Pair:
+    """W^H W as the kernel's Gram forms it, before it is made Hermitian:
+    the real products RR = Xr^T Xr, II = Xi^T Xi and RI = Xr^T Xi of
+    W = Xr + i Xi, each in 3xTF32 with every k8 step flushed, the k8 steps
+    dealt round robin to ``slices`` partial sums added in slice order;
+    then Re = RR + II and Im = RI - RI^T."""
+    xr, xi = w.re.transpose(-1, -2), w.im.transpose(-1, -2)
+    rr, ii, ri = (sum(_steps_3xtf32(x, y, s, slices)
+                      for s in range(slices))
+                  for x, y in ((xr, w.re), (xi, w.im), (xr, w.im)))
+    return Pair(rr + ii, ri - ri.transpose(-1, -2))
 
 
 def zprox_t_emulated(z: Pair, v0, nt: int, nr: int, ladder: LadderArrays):
-    """:func:`zprox_t_plain` with the kernel's arithmetic: every product
-    (the Gram over its K slices, the chain's, the apply) in 3xTF32 with
-    each k8 step flushed (:func:`matmul_3xtf32`)."""
+    """:func:`zprox_t_plain` with the kernel's arithmetic: the Gram
+    (:func:`gram_3xtf32`, over its K slices), the chain's products and the
+    apply (:func:`matmul_3xtf32`) in 3xTF32 with each k8 step flushed."""
     return _zprox_t(z, v0, nr, ladder, matmul_3xtf32,
-                    lambda w: matmul_3xtf32(conj(transpose(w)), w,
-                                            gram_slices(nr, w.re.shape[-2])))
+                    lambda w: gram_3xtf32(w, gram_slices(nr, w.re.shape[-2])))
 
 
 def _check(z: Pair, v0: Pair, nt: int, nr: int, ladder: LadderArrays):
