@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """A/B timing of one of chip_smoke.py's cells between two checkouts on one
-GPU: phase 3's batch solve, phase 4's two-path single solve, or a phase 5
-warm tracker's windows.
+GPU: phase 3's batch solve, phase 4's two-path single solve, a phase 5
+warm tracker's windows, or phase 2's K2 or K3 alone.
 
     python3 scripts/torch_batch_ab.py BASE_DIR
-        [--cell batch|single|warm|warm_fresh] [--pairs 10] [--profile-head]
+        [--cell batch|single|warm|warm_fresh|k2|k3] [--pairs 10]
+        [--profile-head]
 
 Starts one worker process in the checkout that holds this script (head)
 and then one in BASE_DIR (base).  Each imports its own tree's
@@ -38,6 +39,16 @@ and then one in BASE_DIR (base).  Each imports its own tree's
   recorded previous estimate, on the host clock (each window ends in
   the estimate's copy to the host), and reports windows/s and each
   window's ms.
+- ``k2``: K2 alone at the batch solve's shape (192 lanes, r 20, 16x16)
+  and the warm trackers' (1 lane, r 1), on phase 2's kind of input drawn
+  from one seed (``k2_inputs``); a run reads each shape's device time a
+  launch from the profiler (``chip_smoke.device_ms``).
+- ``k3``: K3 alone on ``chip_smoke.k3_cases`` at m 972, 1024, 80 and 3,
+  both passes; a run takes each case's CUDA-event ms a launch (5
+  launches).  K3 has its own cell: after a K3 launch the profiler's reads
+  of the other kernels fail their check (PERF.md, section 6).
+  For both, a run's rate is 1 / the first case's ms, and the summary
+  gives each case's ms per side and base/head per pair.
 
 With ``--profile-head`` the head worker first takes one torch.profiler
 measurement (``chip_smoke.device_ms``) of an elementwise op, as phase 2
@@ -142,6 +153,71 @@ def k2_error():
     want = zprox_t_plain(z, v0, cs.NT, cs.NR, lad)
     return max(float((g - w).abs().max()) for gp, wp in zip(got, want)
                for g, w in zip(gp, wp))
+
+
+#: the k2 cell's shapes (lanes, r, nt, nr) and the k3 cell's m
+K2_AB_SHAPES = ((192, 20, 16, 16), (1, 1, 16, 16))
+K3_AB_MS = (972, 1024, 80, 3)
+
+
+def k2_inputs(lanes, r, nt, nr, seed=0):
+    """K2's inputs of phase 2's kind at (lanes, r, nt x nr): z, a warm
+    basis from a cold eigh of a perturbed z, the three ladders mixed over
+    the lanes; built here from the tree's own modules, so any checkout
+    runs it."""
+    import torch
+
+    from twoace_tpu_torch.ops.cplx import LadderArrays, Pair
+    from twoace_tpu_torch.ops.kernels.zprox import zprox_t_plain
+    from twoace_tpu_torch.ops.prox import profile_ladder_arrays
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = nt * nr
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    z = Pair(randn(lanes, r, n), randn(lanes, r, n))
+    zp = Pair(z.re + 0.05 * randn(lanes, r, n),
+              z.im + 0.05 * randn(lanes, r, n))
+    m = 4 * n
+    lads = [profile_ladder_arrays(nt, nr, mm, n, one, device="cuda")
+            for mm, one in ((int(np.floor(m * 0.95)), False),
+                            (int(np.floor(m * 0.95)), True), (m, False))]
+    pick = torch.arange(lanes, device="cuda") % 3
+    lad = LadderArrays(torch.stack([l.ranks for l in lads])[pick],
+                       torch.stack([l.fracs for l in lads])[pick])
+    _, v0 = zprox_t_plain(zp, None, nt, nr, lad)
+    return z, v0, lad
+
+
+def kernel_cell(cell):
+    """K2's or K3's cases, warmed up; returns the timed run."""
+    import chip_smoke as cs
+    from twoace_tpu_torch.ops.kernels import fused_infer_admm, fused_zprox_t
+
+    cases = {}
+    if cell == "k2":
+        for lanes, r, nt, nr in K2_AB_SHAPES:
+            z, v0, lad = k2_inputs(lanes, r, nt, nr)
+            cases[f"K2 lanes {lanes} r {r} {nt}x{nr}"] = (
+                lambda z=z, v0=v0, lad=lad, nt=nt, nr=nr:
+                fused_zprox_t(z, v0, nt, nr, lad))
+    else:
+        for m in K3_AB_MS:
+            for label, a, kw in cs.k3_cases(m):
+                cases[f"K3 {label}"] = (lambda a=a, kw=kw:
+                                        fused_infer_admm(*a, **kw))
+
+    def run():
+        ms = {name: (cs.device_ms(fn) if cell == "k2"
+                     else cs.cuda_ms(fn, reps=5))
+              for name, fn in cases.items()}
+        first = next(iter(ms.values()))
+        return dict(secs=sum(v or 0.0 for v in ms.values()) / 1e3,
+                    rate=1.0 / first if first else float("nan"), ms=ms)
+
+    return run
 
 
 def single_cell():
@@ -259,7 +335,8 @@ def worker(cell, record_path, profile_first):
         print(f"profiled: {cs.device_ms(lambda: x * 2.0)} ms a launch",
               flush=True)
     run = (batch_cell() if cell == "batch" else single_cell()
-           if cell == "single" else tracker_cell(cell, record_path))
+           if cell == "single" else kernel_cell(cell)
+           if cell in ("k2", "k3") else tracker_cell(cell, record_path))
     ready = {"ready": True}
     if cell == "batch":
         ready["k2_max_abs_err"] = k2_error()
@@ -281,6 +358,9 @@ def quartiles(v):
 
 
 def describe(r, unit):
+    if unit == "1/ms":
+        return " | ".join(f"{k} {'not measured' if v is None else f'{v:.6f}'}"
+                          f" ms" for k, v in r["ms"].items())
     if unit == "solves/s":
         return (f"median {r['median_ms']:.2f} ms a solve | {r['rate']:.4f} "
                 f"solves/s | ms {[round(x, 2) for x in r['ms']]} | median "
@@ -299,7 +379,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("base_dir")
     ap.add_argument("--cell", choices=("batch", "single", "warm",
-                                       "warm_fresh"),
+                                       "warm_fresh", "k2", "k3"),
                     default="batch")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--profile-head", action="store_true")
@@ -309,8 +389,8 @@ def main():
     if args.worker:
         return worker(args.cell, args.record, args.profile_head)
 
-    unit = {"batch": "rec/s", "single": "solves/s"}.get(args.cell,
-                                                        "windows/s")
+    unit = {"batch": "rec/s", "single": "solves/s", "k2": "1/ms",
+            "k3": "1/ms"}.get(args.cell, "windows/s")
     tmp = tempfile.TemporaryDirectory()
     record = os.path.join(tmp.name, "windows.pkl")
     dirs = {"head": HEAD_DIR, "base": os.path.abspath(args.base_dir)}
@@ -356,6 +436,10 @@ def main():
             summary[name].update(
                 nmse_db_median=float(np.median([r["nmse_db"] for r in rs])),
                 iters=sorted({r["iters"] for r in rs}))
+        elif unit == "1/ms":
+            summary[name]["ms"] = {
+                k: quartiles([r["ms"][k] for r in rs if r["ms"][k]])
+                for k in rs[0]["ms"] if any(r["ms"][k] for r in rs)}
         else:
             summary[name]["launches"] = rs[-1]["launches"]
     summary["head_over_base"] = dict(**quartiles(ratio),
@@ -366,6 +450,15 @@ def main():
         summary["latency_head_over_base"] = quartiles(
             [h["median_ms"] / b["median_ms"]
              for b, h in zip(runs["base"], runs["head"])])
+    if unit == "1/ms":
+        # each case's ms, base over head: above 1 where head is faster
+        summary["ms_base_over_head"] = {
+            k: quartiles([b["ms"][k] / h["ms"][k]
+                          for b, h in zip(runs["base"], runs["head"])
+                          if b["ms"][k] and h["ms"][k]])
+            for k in runs["head"][0]["ms"]
+            if any(b["ms"][k] and h["ms"][k]
+                   for b, h in zip(runs["base"], runs["head"]))}
     if unit == "windows/s":
         # a window's ms, base over head: above 1 where head is faster
         per_window = [bw / hw for b, h in zip(runs["base"], runs["head"])
