@@ -45,7 +45,12 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 Between phases 2 and 3 the chain benchmark (``chain``), K6's own path,
 runs ``scripts/torch_bench_pallas_mm.py``'s body.
 
-Phase 2 holds K3 (the loop kernel) against its plain version at the
+Phase 2 holds K2 (the warm Z-prox) against its plain version at
+K2_SHAPES: the batch solve's 192 lanes, the warm trackers' one lane, the
+32x32 point of BENCH_full32_r05.json (W streamed through shared memory)
+and a ragged 24-row shape, with the profiler's device time, the bounds
+and the phase timer's split of a launch (``scripts/torch_k2_phases.py``).
+It holds K3 (the loop kernel) against its plain version at the
 single solve's m 972 and 1024, the cold tracker's m 80 and Vs_M's m 3
 (K3_MS), with its 3xTF32 and FP32 bounds, the card's 16-CTA cluster
 occupancy and the phase timer's split of one launch
@@ -58,7 +63,7 @@ K4_C128_FACTOR times the plain version's), with the route each shape
 takes, the 3xTF32 and float32 bounds and K4's roofline share; and K5 at
 the campaign's, the refine's and a tracker window's shapes, a ragged m
 and complex128, and K6 at the chain benchmark's batch and a ragged
-one.  Phase 2 also reads K1's, K4's, K5's and K6's (and complex64
+one.  Phase 2 also reads K1's, K2's, K4's, K5's and K6's (and complex64
 ``torch.matmul``'s, beside K4) device time a launch from the profiler
 beside their CUDA-event times.  Phases 3, 4 and 5 print K4's launches
 by route.  Each path (the batch solve, the single solves, the

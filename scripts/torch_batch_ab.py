@@ -122,33 +122,13 @@ def batch_cell():
 
 def k2_error():
     """K2's max |difference| from its plain version on inputs of phase 2's
-    kind (192 lanes, r 20, 16x16, a warm basis, the lanes mixing the
-    three ladders), drawn from one seed, so both checkouts see the same
-    inputs."""
-    import torch
-
+    kind at the batch shape (``k2_inputs``), drawn from one seed, so both
+    checkouts see the same inputs."""
     import chip_smoke as cs
-    from twoace_tpu_torch.ops.cplx import LadderArrays, Pair
     from twoace_tpu_torch.ops.kernels import fused_zprox_t
     from twoace_tpu_torch.ops.kernels.zprox import zprox_t_plain
-    from twoace_tpu_torch.ops.prox import profile_ladder_arrays
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    lanes, n = cs.LANES, cs.N
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda")
-
-    z = Pair(randn(lanes, cs.R, n), randn(lanes, cs.R, n))
-    zp = Pair(z.re + 0.05 * randn(lanes, cs.R, n),
-              z.im + 0.05 * randn(lanes, cs.R, n))
-    lads = [profile_ladder_arrays(cs.NT, cs.NR, m, n, one, device="cuda")
-            for m, one in ((cs.M_TRAIN, False), (cs.M_TRAIN, True),
-                           (cs.M, False))]
-    pick = torch.arange(lanes, device="cuda") % 3
-    lad = LadderArrays(torch.stack([l.ranks for l in lads])[pick],
-                       torch.stack([l.fracs for l in lads])[pick])
-    _, v0 = zprox_t_plain(zp, None, cs.NT, cs.NR, lad)
+    z, v0, lad = k2_inputs(cs.LANES, cs.R, cs.NT, cs.NR)
     got = fused_zprox_t(z, v0, cs.NT, cs.NR, lad)
     want = zprox_t_plain(z, v0, cs.NT, cs.NR, lad)
     return max(float((g - w).abs().max()) for gp, wp in zip(got, want)
@@ -161,10 +141,11 @@ K3_AB_MS = (972, 1024, 80, 3)
 
 
 def k2_inputs(lanes, r, nt, nr, seed=0):
-    """K2's inputs of phase 2's kind at (lanes, r, nt x nr): z, a warm
-    basis from a cold eigh of a perturbed z, the three ladders mixed over
-    the lanes; built here from the tree's own modules, so any checkout
-    runs it."""
+    """K2's inputs of phase 2's kind at (lanes, r, nt x nr), as
+    ``chip_smoke.k2_case`` draws them: z, a warm basis from a cold eigh of
+    a perturbed z, the three ladders mixed over the lanes.  Built here
+    from the tree's own modules, so a checkout older than ``k2_case``
+    runs it too."""
     import torch
 
     from twoace_tpu_torch.ops.cplx import LadderArrays, Pair

@@ -56,11 +56,8 @@ def build_timer_lib(tmpdir):
                     src], check=True, capture_output=True, text=True,
                    timeout=600)
     lib = ctypes.CDLL(out)
-    for name in ("twoace_zprox_t", "twoace_zprox_plan"):
-        fn = getattr(lib, name, None)
-        if fn is not None:
-            fn.argtypes = _build.SIGNATURES[name]
-            fn.restype = ctypes.c_int
+    lib.twoace_zprox_t.argtypes = _build.SIGNATURES["twoace_zprox_t"]
+    lib.twoace_zprox_t.restype = ctypes.c_int
     lib.twoace_zprox_phases.argtypes = [ctypes.c_void_p]
     lib.twoace_zprox_phases.restype = ctypes.c_int
     return lib

@@ -30,11 +30,11 @@ from twoace_tpu_torch.ops.prox import profile_ladder_arrays
 SHAPES = [(3, 12, 8, 8), (2, 20, 16, 16), (2, 6, 32, 32), (3, 3, 8, 8),
           (3, 5, 3, 8)]
 #: the emulation against the plain version: test_pallas.py's envelope for
-#: the Pallas kernel against the XLA chain (measured at most 9e-6 here)
+#: the Pallas kernel against the XLA chain (at most 5.9e-6 on these inputs)
 EMU_ATOL = 2e-5
 #: the emulation and the plain version against the loop in float64: a
-#: fifth of chip_smoke.py's K2_ATOL (measured at most 1.2e-5 for the
-#: plain version, 3.4e-6 for the emulation)
+#: fifth of chip_smoke.py's K2_ATOL (at most 3.5e-6 and 4.6e-6 on these
+#: inputs)
 F64_ATOL = 1e-5
 
 
@@ -194,16 +194,6 @@ def test_plan_fits_every_shape_the_wrapper_takes(nr):
             resident = 4 * (2 * _up(rows, chunk) * p["stride"] + p["scratch"]
                             + _up(k2.chain_floats(nr), 4))
             assert resident > k2.MAX_SMEM and p["stages"] == 2
-
-
-def test_chain_warps_leave_a_warp_for_the_ladder():
-    """In K2's and K3's 8-warp blocks the chain's products have 1, 2, 6 or
-    8 tiles of m16 x n8: up to nr 24 seven warps run the chain and the
-    eighth the ladder beside it; at 8 tiles all eight run the chain, the
-    ladder after the products."""
-    nrs = (1, 8, 16, 17, 24, 25, 32)
-    assert [k2.chain_tiles(nr) for nr in nrs] == [1, 1, 2, 6, 6, 8, 8]
-    assert [k2.chain_warps(nr) for nr in nrs] == [7, 7, 7, 7, 7, 8, 8]
 
 
 @pytest.mark.parametrize("nr, rows, slices", [

@@ -38,7 +38,7 @@
 //    the ladder on the eighth beside them.  It runs once a launch, so its
 //    instruction fetch counts: one copy of its product serves all six.
 // Shared memory: the staged W, the Gram's partials (24 nr (nr + 1) floats
-// at nr <= 16) and the chain's nr x nr matrices: 85.9 KB at r 20, 16x16,
+// at nr <= 16) and the chain's nr x nr matrices: 85,664 B at r 20, 16x16,
 // so two blocks share an SM.
 //
 // Plain C interface, loaded with ctypes.  Launches on the caller's stream,
@@ -186,10 +186,10 @@ __device__ __forceinline__ void cp_wait_upto(int n) {
 // copies of W's rows [row0, row0 + chunk) into a staged chunk (rows past
 // `rows` zero-filled): 16 bytes a copy where a row is whole 16-byte words
 // (vec), else 4 bytes
-__device__ __forceinline__ void issue_chunk(float* sr, float* si,
-                                            const float* wr, const float* wi,
-                                            int row0, int chunk, int rows,
-                                            int nr, int stride, bool vec) {
+__device__ __forceinline__ void copy_chunk(float* sr, float* si,
+                                           const float* wr, const float* wi,
+                                           int row0, int chunk, int rows,
+                                           int nr, int stride, bool vec) {
   if (vec) {
     const int q4 = nr >> 2;
     for (int e = threadIdx.x; e < chunk * q4; e += kThreads) {
@@ -470,8 +470,8 @@ __global__ void __launch_bounds__(kThreads, 2) zprox_kernel(
   // W's first P chunks (all of a resident W), a commit group each
   for (int c = 0; c < P; ++c) {
     if (c < pl.chunks)
-      issue_chunk(Wr + c * CH * S, Wi + c * CH * S, wr, wi, c * CH, CH,
-                  rows, nr, S, vec);
+      copy_chunk(Wr + c * CH * S, Wi + c * CH * S, wr, wi, c * CH, CH,
+                 rows, nr, S, vec);
     twoace::cp_commit();
   }
   // V0 in the W-convention: conj of the E-convention basis
@@ -507,8 +507,8 @@ __global__ void __launch_bounds__(kThreads, 2) zprox_kernel(
     if (!pl.resident) {
       __syncthreads();                   // stage b is free again
       if (c + P < pl.chunks)
-        issue_chunk(Wr + b * CH * S, Wi + b * CH * S, wr, wi, (c + P) * CH,
-                    CH, rows, nr, S, vec);
+        copy_chunk(Wr + b * CH * S, Wi + b * CH * S, wr, wi, (c + P) * CH,
+                   CH, rows, nr, S, vec);
     }
     twoace::cp_commit();
   }
@@ -516,8 +516,8 @@ __global__ void __launch_bounds__(kThreads, 2) zprox_kernel(
   if (!pl.resident) {
     for (int c = 0; c < P; ++c) {
       if (c < pl.chunks)
-        issue_chunk(Wr + c * CH * S, Wi + c * CH * S, wr, wi, c * CH, CH,
-                    rows, nr, S, vec);
+        copy_chunk(Wr + c * CH * S, Wi + c * CH * S, wr, wi, c * CH, CH,
+                   rows, nr, S, vec);
       twoace::cp_commit();
     }
   }
@@ -590,8 +590,8 @@ __global__ void __launch_bounds__(kThreads, 2) zprox_kernel(
                  vec);
       __syncthreads();                   // stage b is free again
       if (c + P < pl.chunks)
-        issue_chunk(Wr + b * CH * S, Wi + b * CH * S, wr, wi, (c + P) * CH,
-                    CH, rows, nr, S, vec);
+        copy_chunk(Wr + b * CH * S, Wi + b * CH * S, wr, wi, (c + P) * CH,
+                   CH, rows, nr, S, vec);
       twoace::cp_commit();
     }
   }

@@ -38,19 +38,6 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def chain_tiles(nr: int) -> int:
-    """m16 x n8 tiles of an nr x nr product (``zprox_core.cuh``): one a
-    warp in the chain's products and in the Gram."""
-    return -(-nr // 16) * -(-nr // 8)
-
-
-def chain_warps(nr: int, warps: int = THREADS // 32) -> int:
-    """The chain's warps: all but the last, which runs the ladder beside
-    them, where the products have fewer tiles than the block has warps;
-    else all."""
-    return warps - 1 if chain_tiles(nr) < warps else warps
-
-
 def gram_units(nr: int) -> int:
     """The Gram's m16 x n16 blocks, a warp each (``csrc/zprox.cu``)."""
     b = -(-nr // 16)
