@@ -392,14 +392,7 @@ def phase2_k2():
     the plain version's time and the bounds: z, v0 and the ladder read and
     both outputs written once, and the Gram's, the chain's six and the
     apply's complex products (6 flops a complex multiply-add, the
-    Karatsuba 3M form) as 3xTF32 on the tensor cores; then the phase
-    timer's split of a launch at the first two shapes
-    (``scripts/torch_k2_phases.py``)."""
-    import tempfile
-
-    sys.path.insert(0, os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "scripts"))
-    from torch_k2_phases import build_timer_lib, fmt_split, phase_split
+    Karatsuba 3M form) as 3xTF32 on the tensor cores."""
     from twoace_tpu_torch.ops.kernels.zprox import plan as k2_plan
 
     out = {}
@@ -442,6 +435,21 @@ def phase2_k2():
         out[(lanes, r, nt, nr)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, device_ms=dev, **bnd,
             library_ms=None)
+    first = dict(out[K2_SHAPES[0]])
+    first["max_abs_err"] = max(o["max_abs_err"] for o in out.values())
+    return first
+
+
+def print_k2_phases():
+    """The phase timer's split of a K2 launch at the first two K2_SHAPES
+    (``scripts/torch_k2_phases.py``'s timer build).  Run after the
+    profiler's reads of the other kernels, as K3's split is."""
+    import tempfile
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "scripts"))
+    from torch_k2_phases import build_timer_lib, fmt_split, phase_split
+
     with tempfile.TemporaryDirectory() as tmp:
         lib = build_timer_lib(tmp)
         for lanes, r, nt, nr in K2_SHAPES[:2]:
@@ -450,9 +458,6 @@ def phase2_k2():
                                                            lad))
             print(f"[2 K2 phases] lanes {lanes} r {r} nt {nt} nr {nr}, timer "
                   f"build, lane 0: {fmt_split(split)}", flush=True)
-    first = dict(out[K2_SHAPES[0]])
-    first["max_abs_err"] = max(o["max_abs_err"] for o in out.values())
-    return first
 
 
 def phase2_kernels():
@@ -512,6 +517,7 @@ def phase2_kernels():
     # reads failed their consistency check (PERF.md, section 7)
     summary["fused_infer_admm"], k3_timed = phase2_k3()
     print_k3_phases(*k3_timed)
+    print_k2_phases()
     return summary
 
 
