@@ -42,7 +42,9 @@ and then one in BASE_DIR (base).  Each imports its own tree's
 - ``k2``: K2 alone at the batch solve's shape (192 lanes, r 20, 16x16)
   and the warm trackers' (1 lane, r 1), on phase 2's kind of input drawn
   from one seed (``k2_inputs``); a run reads each shape's device time a
-  launch from the profiler (``chip_smoke.device_ms``).
+  launch from the profiler (``chip_smoke.device_ms``), back to back and
+  with each launch after 41 small kernels, as a tracker's trip runs
+  them (K2's own events only).
 - ``k3``: K3 alone on ``chip_smoke.k3_cases`` at m 972, 1024, 80 and 3,
   both passes; a run takes each case's CUDA-event ms a launch (5
   launches).  K3 has its own cell: after a K3 launch the profiler's reads
@@ -177,13 +179,28 @@ def kernel_cell(cell):
     import chip_smoke as cs
     from twoace_tpu_torch.ops.kernels import fused_infer_admm, fused_zprox_t
 
-    cases = {}
+    cases, between = {}, {}
     if cell == "k2":
+        import torch
+
+        x = torch.ones(4096, device="cuda")
+
+        def others():
+            """What a warm tracker's trip runs between its K2 launches: a
+            few dozen small elementwise kernels and a reduction."""
+            y = x
+            for _ in range(40):
+                y = y * 1.0001 + 1e-7
+            return y.sum()
+
         for lanes, r, nt, nr in K2_AB_SHAPES:
             z, v0, lad = k2_inputs(lanes, r, nt, nr)
-            cases[f"K2 lanes {lanes} r {r} {nt}x{nr}"] = (
-                lambda z=z, v0=v0, lad=lad, nt=nt, nr=nr:
-                fused_zprox_t(z, v0, nt, nr, lad))
+            launch = (lambda z=z, v0=v0, lad=lad, nt=nt, nr=nr:
+                      fused_zprox_t(z, v0, nt, nr, lad))
+            cases[f"K2 lanes {lanes} r {r} {nt}x{nr}"] = launch
+            between[f"K2 lanes {lanes} r {r} {nt}x{nr} between others"] = (
+                lambda launch=launch: (others(), launch()))
+
     else:
         for m in K3_AB_MS:
             for label, a, kw in cs.k3_cases(m):
@@ -194,6 +211,12 @@ def kernel_cell(cell):
         ms = {name: (cs.device_ms(fn) if cell == "k2"
                      else cs.cuda_ms(fn, reps=5))
               for name, fn in cases.items()}
+        for name, fn in between.items():
+            # K2's own events of each call, apart from the others' (a
+            # second function, launching nothing, owns those)
+            ms[name] = cs.device_ms(
+                fn, lambda: None,
+                owner=lambda k: 0 if "zprox" in k else 1)[0]
         first = next(iter(ms.values()))
         return dict(secs=sum(v or 0.0 for v in ms.values()) / 1e3,
                     rate=1.0 / first if first else float("nan"), ms=ms)

@@ -157,7 +157,8 @@ def test_emulated_kernel_matches_pallas_interpret():
 def test_plan_at_the_main_path_shapes():
     """The batch solve's W (r 20, 16x16: 320 rows) stays resident in four
     80-row chunks in at most 110 KB, so two blocks share an SM (192 lanes
-    on 132 SMs); the warm trackers' 16 rows in one chunk; the 32x32
+    on 132 SMs); the warm trackers' 16 rows in one chunk, in under 20 KB;
+    the 32x32
     point's 640 rows (160 KB a lane, 180 KB padded) stream in 64-row
     chunks; the ragged 24 rows take two 16-row chunks."""
     main = k2.plan(20 * 16, 16)
@@ -166,6 +167,7 @@ def test_plan_at_the_main_path_shapes():
     assert 2 * (main["smem"] + 1024) <= 228 * 1024
     warm = k2.plan(16, 16)
     assert warm["resident"] and warm["chunks"] == 1
+    assert warm["smem"] < 20 * 1024          # partials for its 2 K slices
     full32 = k2.plan(20 * 32, 32)
     assert not full32["resident"] and full32["stages"] == 2
     assert (full32["chunk"], full32["chunks"]) == (k2.STREAM_ROWS, 10)
@@ -185,7 +187,8 @@ def test_plan_fits_every_shape_the_wrapper_takes(nr):
         assert p["stride"] >= nr and p["stride"] % 8 == 4
         assert p["chunk"] % 16 == 0 and p["chunk"] * p["chunks"] >= rows
         assert p["smem"] <= k2.MAX_SMEM
-        assert p["scratch"] == 8 // k2.gram_units(nr) * 3 * nr * (nr + 1)
+        assert p["scratch"] == (k2.gram_slices(nr, rows) * 3 * nr
+                                * (nr + 1))
         if p["resident"]:
             assert p["stages"] == max(p["chunks"], 1) <= k2.MAX_CHUNKS
         else:

@@ -145,15 +145,15 @@ struct Plan {
   int stages;     // chunks held at once: all (resident) or 2 (streamed)
   int resident;   // 1: W is read once and kept for the apply
   int scratch;    // floats of the Gram's partial sums RR, II, RI, one set
-                  // a K slice (rows padded to nr + 1: the sum reads them
-                  // transposed)
+                  // a K slice this launch uses (rows padded to nr + 1: the
+                  // sum reads them transposed)
   int smem;       // bytes of shared memory a block
 };
 
 __host__ __device__ inline Plan make_plan(int rows, int nr) {
   Plan p;
   p.stride = (nr + 3) / 8 * 8 + 4;
-  p.scratch = kWarps / gram_units(nr) * 3 * nr * (nr + 1);
+  p.scratch = gram_slices(nr, rows) * 3 * nr * (nr + 1);
   const int fixed =
       p.scratch + round_up(twoace::zprox_smem_floats(nr, kThreads), 4);
   p.chunk = round_up((rows + kMaxChunks - 1) / kMaxChunks, 16);

@@ -63,11 +63,11 @@ def plan(rows: int, nr: int) -> dict:
     multiple of 16), the chunks, the chunks held at once, whether W stays
     resident (read once, kept for the apply) or streams through two
     stages and is read again for the apply, the floats of the Gram's
-    partial sums RR, II and RI (one set for each of the most K slices,
+    partial sums RR, II and RI (one set for each K slice,
     :func:`gram_slices`, rows padded to nr + 1) and the bytes of shared
     memory a block."""
     stride = (nr + 3) // 8 * 8 + 4
-    scratch = (THREADS // 32) // gram_units(nr) * 3 * nr * (nr + 1)
+    scratch = gram_slices(nr, rows) * 3 * nr * (nr + 1)
     fixed = scratch + _round_up(chain_floats(nr), 4)
     chunk = max(16, _round_up(-(-rows // MAX_CHUNKS), 16))
     chunks = -(-rows // chunk)
