@@ -113,6 +113,10 @@ from twoace_tpu_torch.utils.metrics import nmse_h_projection  # noqa: E402
 from twoace_tpu_torch.utils.rng import fold_in  # noqa: E402
 from twoace_tpu_torch.utils.units import dbm_to_amplitude  # noqa: E402
 
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "scripts"))
+from torch_batch_ab import host_us, launch_floor_ms  # noqa: E402
+
 NT = NR = 16
 N = NT * NR
 M = 4 * N
@@ -511,8 +515,12 @@ def phase2_kernels():
 
     summary["fused_zprox_t"] = phase2_k2()
     summary["pair_matmul"] = phase2_k4()
-    summary["fused_prox_dual"] = phase2_k5()
-    summary["pair_chain_mm"] = phase2_k6()
+    floor = launch_floor_ms(device_ms)
+    print(f"[2 launch floor] a one-element elementwise op: device "
+          f"{fmt_ms(floor)} per launch (profiler); the floor for reading K5 "
+          f"and K6", flush=True)
+    summary["fused_prox_dual"] = phase2_k5(floor)
+    summary["pair_chain_mm"] = phase2_k6(floor)
     # K3 after the profiler's reads of K4-K6: after a K3 launch those
     # reads failed their consistency check (PERF.md, section 7)
     summary["fused_infer_admm"], k3_timed = phase2_k3()
@@ -521,11 +529,12 @@ def phase2_kernels():
     return summary
 
 
-def phase2_k6():
+def phase2_k6(floor):
     """K6 against its plain version at K6_BATCHES of (16, 16) instances
-    (8 steps), with the times of both, of the complex64 ``torch.matmul``
-    chain and the bound: V and G read once and V' written once, and the
-    Karatsuba chain's 3 real n x n x n products a step."""
+    (8 steps), with the times of both, the host's cost of a call, of the
+    complex64 ``torch.matmul`` chain and the bound (V and G read once and
+    V' written once, and the Karatsuba chain's 3 real n x n x n products a
+    step) beside the launch floor ``floor``."""
     out = {}
     for batch in K6_BATCHES:
         planes = chain_mm.lane_inputs(seed=6, b=batch)
@@ -548,15 +557,19 @@ def phase2_k6():
             plain = cuda_ms(lambda: pair_chain_mm_plain(v, g))
             lib = cuda_ms(lambda: chain_mm.library_chain(vc, gc))
             dev = device_ms(lambda: pair_chain_mm(v, g))
+            host = host_us(lambda: pair_chain_mm(v, g))
         n = chain_mm.N
         bnd = bound(nbytes(v, g, got),
                     chain_mm.CHAIN * batch * 3 * 2 * n ** 3)
         print(f"[2 K6 pair_chain_mm] B {batch}, {n}x{n}, {chain_mm.CHAIN} "
               f"steps: max rel err {rel:.3e} (tol {K6_RTOL}), max abs err "
               f"{err:.3e} | kernel {ms:.4f} ms (events), device "
-              f"{fmt_ms(dev)} per launch (profiler) | plain {plain:.4f} ms | "
+              f"{fmt_ms(dev)} per launch (profiler) | host "
+              f"{host['events_us']:.2f} us a call (events; host clock "
+              f"{host['clock_us']:.2f}) | plain {plain:.4f} ms | "
               f"complex64 torch.matmul chain {lib:.4f} ms | bound "
-              f"{bnd['bound_ms']:.6f} ms ({bnd['bound_by']})", flush=True)
+              f"{bnd['bound_ms']:.6f} ms ({bnd['bound_by']}) | launch floor "
+              f"{fmt_ms(floor)}", flush=True)
         out[batch] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                           device_ms=dev, **bnd, library_ms=lib)
     return out[K6_BATCHES[0]]
@@ -586,10 +599,11 @@ def phase_chain_bench():
     return counts
 
 
-def phase2_k5():
-    """K5 against its plain version at K5_SHAPES, with the times of both
-    and the bound: each of ax, M, b, mu read once and y, M' written once,
-    about 20 flops per complex entry."""
+def phase2_k5(floor):
+    """K5 against its plain version at K5_SHAPES, with the times of both,
+    the host's cost of a call and the bound (each of ax, M, b, mu read
+    once and y, M' written once, about 20 flops per complex entry) beside
+    the launch floor ``floor``."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     out = {}
     for m, r, dtype, per_entry in K5_SHAPES:
@@ -615,12 +629,15 @@ def phase2_k5():
         plain = cuda_ms(lambda: prox_dual_rows_plain(ax, b, md, mu,
                                                      per_entry))
         dev = device_ms(lambda: fused_prox_dual(ax, b, md, mu, per_entry))
+        host = host_us(lambda: fused_prox_dual(ax, b, md, mu, per_entry))
         bnd = bound(nbytes(ax, md, b, mu, *got), 20 * m * r)
         print(f"[2 K5 fused_prox_dual] {label}: max rel err {rel:.3e} (tol "
               f"{K5_RTOL[dtype]}), max abs err {err:.3e} | kernel {ms:.4f} "
               f"ms (events), device {fmt_ms(dev)} per launch (profiler) | "
-              f"plain {plain:.4f} ms | bound {bnd['bound_ms']:.6f} ms "
-              f"({bnd['bound_by']})", flush=True)
+              f"host {host['events_us']:.2f} us a call (events; host clock "
+              f"{host['clock_us']:.2f}) | plain {plain:.4f} ms | bound "
+              f"{bnd['bound_ms']:.6f} ms ({bnd['bound_by']}) | launch floor "
+              f"{fmt_ms(floor)}", flush=True)
         out[(m, r, dtype, per_entry)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, device_ms=dev, **bnd,
             library_ms=None)
@@ -1498,11 +1515,15 @@ def phase6_campaign(cold_k3):
     a = cb[:M]
     b = dbm_to_amplitude(torch.as_tensor(rss[:M], device=a.device),
                          cc.rss_fct)
-    _, _, _, counts = run_campaign("the profiled solve", lambda: profile_call(
+    _, _, wall, counts = run_campaign("the profiled solve", lambda: profile_call(
         f"[6 profile] solve_lowrank_multi M {M}",
         lambda: admm.solve_lowrank_multi(torch.Generator().manual_seed(0), a,
                                          b, NT, NR, cc.admm)))
     add(counts)
+    trips = admm.infer_admm.trips
+    print(f"[6 profile] {trips} trips, K5 launches "
+          f"{counts['fused_prox_dual']}: {1e3 * wall / max(trips, 1):.3f} ms "
+          f"a trip (wall under the profiler)", flush=True)
     return totals
 
 

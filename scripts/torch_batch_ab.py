@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """A/B timing of one of chip_smoke.py's cells between two checkouts on one
 GPU: phase 3's batch solve, phase 4's two-path single solve, a phase 5
-warm tracker's windows, or phase 2's K2 or K3 alone.
+warm tracker's windows, or phase 2's K2, K3, K5 or K6 alone.
 
     python3 scripts/torch_batch_ab.py BASE_DIR
-        [--cell batch|single|warm|warm_fresh|k2|k3] [--pairs 10]
+        [--cell batch|single|warm|warm_fresh|k2|k3|k5|k6] [--pairs 10]
         [--profile-head]
 
 Starts one worker process in the checkout that holds this script (head)
@@ -49,8 +49,21 @@ and then one in BASE_DIR (base).  Each imports its own tree's
   both passes; a run takes each case's CUDA-event ms a launch (5
   launches).  K3 has its own cell: after a K3 launch the profiler's reads
   of the other kernels fail their check (PERF.md, section 6).
-  For both, a run's rate is 1 / the first case's ms, and the summary
-  gives each case's ms per side and base/head per pair.
+- ``k5``: K5 (``fused_prox_dual``) alone at every ``K5_AB_SHAPES`` entry
+  (chip_smoke.py's ``K5_SHAPES``: the campaign's (972, 20) in the row
+  and the per-entry form, the refine's (1024, 1), a tracker window's
+  (80, 20), a ragged (97, 3) and complex128), on phase 2's kind of input
+  drawn from one seed (``k5_inputs``).
+- ``k6``: K6 (``pair_chain_mm``) alone at B 256 and 100 (16x16, 8 steps,
+  the chain benchmark's inputs).
+  For ``k5`` and ``k6`` a run reads, per shape, the profiler's device ms
+  a launch back to back and with each launch after 41 small kernels (as
+  the complex loop's trip runs them; the kernel's own events only), and
+  the host's cost of a call (``host_us``: 2000 back-to-back calls, on
+  CUDA events and on the host clock, in ms a call), and the launch floor
+  (the profiler's device ms of a one-element elementwise op).
+  For the kernel cells, a run's rate is 1 / the first case's ms, and the
+  summary gives each case's ms per side and base/head per pair.
 
 With ``--profile-head`` the head worker first takes one torch.profiler
 measurement (``chip_smoke.device_ms``) of an elementwise op, as phase 2
@@ -174,25 +187,87 @@ def k2_inputs(lanes, r, nt, nr, seed=0):
     return z, v0, lad
 
 
+#: the k5 cell's shapes (m, r, dtype name, per_entry): chip_smoke.py's
+#: K5_SHAPES
+K5_AB_SHAPES = ((972, 20, "complex64", False), (972, 20, "complex64", True),
+                (1024, 1, "complex64", False), (80, 20, "complex64", False),
+                (97, 3, "complex64", True), (972, 20, "complex128", False))
+K6_AB_BATCHES = (256, 100)
+#: the calls ``host_us`` times
+HOST_CALLS = 2000
+
+
+def k5_inputs(m, r, dtype, seed=5):
+    """K5's inputs of phase 2's kind at (m, r): ax and M normal, b in
+    [0.5, 1.5) with 9 padded (b = 0) rows, row 3 all zero, mu 0.41."""
+    import torch
+
+    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ax, md = (torch.randn(m, r, dtype=dtype, generator=gen, device="cuda")
+              for _ in range(2))
+    b = torch.rand(m, dtype=rdt, generator=gen, device="cuda") + 0.5
+    b[m - 9:] = 0.0
+    ax[3] = 0.0
+    md[3] = 0.0
+    return ax, b, md, torch.tensor(0.41, dtype=rdt, device="cuda")
+
+
+def host_us(fn, calls=HOST_CALLS):
+    """The host's cost of a call of ``fn``: ``calls`` calls back to back
+    (no sync between them), timed by CUDA events and by the host clock;
+    returns both in microseconds a call.  Where the device runs each call
+    in less time than the host takes to issue it, the two agree."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    stop.record()
+    torch.cuda.synchronize()
+    return dict(events_us=start.elapsed_time(stop) * 1e3 / calls,
+                clock_us=(t1 - t0) * 1e6 / calls)
+
+
+def launch_floor_ms(device_ms):
+    """The profiler's device ms of a one-element elementwise op: a floor
+    for reading a kernel whose work is far below one launch."""
+    import torch
+
+    x = torch.ones(1, device="cuda")
+    return device_ms(lambda: x * 2.0)
+
+
+def small_kernels():
+    """What a trip of the loops runs between two launches of one kernel: a
+    few dozen small elementwise kernels and a reduction (41 launches)."""
+    import torch
+
+    x = torch.ones(4096, device="cuda")
+
+    def others():
+        y = x
+        for _ in range(40):
+            y = y * 1.0001 + 1e-7
+        return y.sum()
+
+    return others
+
+
 def kernel_cell(cell):
-    """K2's or K3's cases, warmed up; returns the timed run."""
+    """K2's, K3's, K5's or K6's cases, warmed up; returns the timed run."""
     import chip_smoke as cs
     from twoace_tpu_torch.ops.kernels import fused_infer_admm, fused_zprox_t
 
-    cases, between = {}, {}
+    cases, between, host, own = {}, {}, {}, None
     if cell == "k2":
-        import torch
-
-        x = torch.ones(4096, device="cuda")
-
-        def others():
-            """What a warm tracker's trip runs between its K2 launches: a
-            few dozen small elementwise kernels and a reduction."""
-            y = x
-            for _ in range(40):
-                y = y * 1.0001 + 1e-7
-            return y.sum()
-
+        others, own = small_kernels(), "zprox"
         for lanes, r, nt, nr in K2_AB_SHAPES:
             z, v0, lad = k2_inputs(lanes, r, nt, nr)
             launch = (lambda z=z, v0=v0, lad=lad, nt=nt, nr=nr:
@@ -200,7 +275,34 @@ def kernel_cell(cell):
             cases[f"K2 lanes {lanes} r {r} {nt}x{nr}"] = launch
             between[f"K2 lanes {lanes} r {r} {nt}x{nr} between others"] = (
                 lambda launch=launch: (others(), launch()))
+    elif cell in ("k5", "k6"):
+        import torch
 
+        from twoace_tpu_torch.ops.cplx import Pair
+        from twoace_tpu_torch.ops.kernels import (chain_mm, fused_prox_dual,
+                                                  pair_chain_mm)
+
+        others = small_kernels()
+        if cell == "k5":
+            own = "prox_dual_rows"
+            for m, r, dt, per_entry in K5_AB_SHAPES:
+                args = k5_inputs(m, r, getattr(torch, dt))
+                cases[f"K5 ({m}, {r}) {dt} per_entry {per_entry}"] = (
+                    lambda args=args, pe=per_entry:
+                    fused_prox_dual(*args, per_entry=pe))
+        else:
+            own = "chain_mm"
+            for batch in K6_AB_BATCHES:
+                planes = chain_mm.lane_inputs(seed=6, b=batch)
+                v, g = (chain_mm.from_lanes(Pair(*(
+                    torch.as_tensor(p, device="cuda") for p in pl)))
+                    for pl in (planes[:2], planes[2:]))
+                cases[f"K6 B {batch} {chain_mm.N}x{chain_mm.N}"] = (
+                    lambda v=v, g=g: pair_chain_mm(v, g))
+        for name, launch in list(cases.items()):
+            between[f"{name} between others"] = (
+                lambda launch=launch: (others(), launch()))
+            host[f"{name} host (events, {HOST_CALLS} calls)"] = launch
     else:
         for m in K3_AB_MS:
             for label, a, kw in cs.k3_cases(m):
@@ -208,15 +310,20 @@ def kernel_cell(cell):
                                         fused_infer_admm(*a, **kw))
 
     def run():
-        ms = {name: (cs.device_ms(fn) if cell == "k2"
-                     else cs.cuda_ms(fn, reps=5))
+        ms = {name: (cs.cuda_ms(fn, reps=5) if cell == "k3"
+                     else cs.device_ms(fn))
               for name, fn in cases.items()}
         for name, fn in between.items():
-            # K2's own events of each call, apart from the others' (a
-            # second function, launching nothing, owns those)
+            # the kernel's own events of each call, apart from the others'
+            # (a second function, launching nothing, owns those)
             ms[name] = cs.device_ms(
-                fn, lambda: None,
-                owner=lambda k: 0 if "zprox" in k else 1)[0]
+                fn, lambda: None, owner=lambda k: 0 if own in k else 1)[0]
+        for name, fn in host.items():
+            us = host_us(fn)
+            ms[name] = us["events_us"] / 1e3
+            ms[name.replace("(events", "(host clock")] = us["clock_us"] / 1e3
+        if host:
+            ms["launch floor (one-element op)"] = launch_floor_ms(cs.device_ms)
         first = next(iter(ms.values()))
         return dict(secs=sum(v or 0.0 for v in ms.values()) / 1e3,
                     rate=1.0 / first if first else float("nan"), ms=ms)
@@ -340,7 +447,8 @@ def worker(cell, record_path, profile_first):
               flush=True)
     run = (batch_cell() if cell == "batch" else single_cell()
            if cell == "single" else kernel_cell(cell)
-           if cell in ("k2", "k3") else tracker_cell(cell, record_path))
+           if cell in ("k2", "k3", "k5", "k6")
+           else tracker_cell(cell, record_path))
     ready = {"ready": True}
     if cell == "batch":
         ready["k2_max_abs_err"] = k2_error()
@@ -383,7 +491,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("base_dir")
     ap.add_argument("--cell", choices=("batch", "single", "warm",
-                                       "warm_fresh", "k2", "k3"),
+                                       "warm_fresh", "k2", "k3", "k5", "k6"),
                     default="batch")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--profile-head", action="store_true")
@@ -394,7 +502,8 @@ def main():
         return worker(args.cell, args.record, args.profile_head)
 
     unit = {"batch": "rec/s", "single": "solves/s", "k2": "1/ms",
-            "k3": "1/ms"}.get(args.cell, "windows/s")
+            "k3": "1/ms", "k5": "1/ms", "k6": "1/ms"}.get(args.cell,
+                                                         "windows/s")
     tmp = tempfile.TemporaryDirectory()
     record = os.path.join(tmp.name, "windows.pkl")
     dirs = {"head": HEAD_DIR, "base": os.path.abspath(args.base_dir)}

@@ -34,6 +34,41 @@
 
 #include <cuda_runtime.h>
 
+// ---- phase timer (built only with -DTWOACE_K6_PHASE_TIMER, by
+// scripts/torch_k6_phases.py): thread 0 of block 0 stamps %globaltimer
+// after each part and sums the nanoseconds per slot over the launches
+// until the host reads and clears them: loading V and G, the steps'
+// products, their norms with the barriers (and the writes of V for the
+// next step), the stores.
+enum K6Slot { K6_LOAD, K6_PROD, K6_NORM, K6_STORE, K6_LAUNCHES, K6_SLOTS };
+#ifdef TWOACE_K6_PHASE_TIMER
+__device__ unsigned long long g_k6_phase[K6_SLOTS];
+__device__ __forceinline__ unsigned long long k6_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define K6_MARK_START                                                \
+  const bool k6_on = blockIdx.x == 0 && threadIdx.x == 0;            \
+  unsigned long long k6_acc[K6_LAUNCHES] = {}, k6_t = k6_now();
+#define K6_MARK(slot)                                                \
+  if (k6_on) {                                                       \
+    const unsigned long long k6_n = k6_now();                        \
+    k6_acc[slot] += k6_n - k6_t;                                     \
+    k6_t = k6_n;                                                     \
+  }
+#define K6_MARK_END                                                  \
+  if (k6_on) {                                                       \
+    for (int k6_s = 0; k6_s < K6_LAUNCHES; ++k6_s)                   \
+      atomicAdd(&g_k6_phase[k6_s], k6_acc[k6_s]);                    \
+    atomicAdd(&g_k6_phase[K6_LAUNCHES], 1ull);                       \
+  }
+#else
+#define K6_MARK_START
+#define K6_MARK(slot)
+#define K6_MARK_END
+#endif
+
 namespace {
 
 constexpr int kMaxN = 32;  // n * n threads, at most 1024
@@ -75,6 +110,7 @@ __global__ void chain_mm_kernel(const float* __restrict__ vr,
   const long long base = (long long)blockIdx.x * nn;
   const int i = live ? t / n : 0, j = live ? t % n : 0;
   const int nwarps = (blockDim.x + 31) >> 5;
+  K6_MARK_START
 
   float re = 0.f, im = 0.f;
   if (live) {
@@ -89,6 +125,7 @@ __global__ void chain_mm_kernel(const float* __restrict__ vr,
     s_vm[t] = __fsub_rn(im, re);
   }
   __syncthreads();
+  K6_MARK(K6_LOAD)
 
   for (int step = 0; step < steps; ++step) {
     float p = 0.f;
@@ -108,6 +145,7 @@ __global__ void chain_mm_kernel(const float* __restrict__ vr,
       im = __fadd_rn(k1, k3);
       p = __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
     }
+    K6_MARK(K6_PROD)
     // block_sum's first barrier also ends every thread's reads of V
     const float scale = __frsqrt_rn(__fadd_rn(block_sum(p, red, nwarps), 1e-30f));
     if (live) {
@@ -118,11 +156,14 @@ __global__ void chain_mm_kernel(const float* __restrict__ vr,
       s_vm[t] = __fsub_rn(im, re);
     }
     __syncthreads();
+    K6_MARK(K6_NORM)
   }
   if (live) {
     out_r[base + t] = re;
     out_i[base + t] = im;
   }
+  K6_MARK(K6_STORE)
+  K6_MARK_END
 }
 
 }  // namespace
@@ -139,3 +180,16 @@ extern "C" int twoace_chain_mm(const void* vr, const void* vi, const void* gr,
       (float*)out_r, (float*)out_i, n, steps);
   return (int)cudaGetLastError();
 }
+
+#ifdef TWOACE_K6_PHASE_TIMER
+// The phase timer's sums since the last read (K6_SLOTS values:
+// nanoseconds per slot, then block 0's launches), copied to out and
+// cleared.
+extern "C" int twoace_chain_mm_phases(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_k6_phase,
+                                         sizeof(unsigned long long) * K6_SLOTS);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zero[K6_SLOTS] = {};
+  return (int)cudaMemcpyToSymbol(g_k6_phase, zero, sizeof(zero));
+}
+#endif
