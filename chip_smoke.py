@@ -63,7 +63,9 @@ K4_C128_FACTOR times the plain version's), with the route each shape
 takes, the 3xTF32 and float32 bounds and K4's roofline share; and K5 at
 the campaign's, the refine's and a tracker window's shapes, a ragged m
 and complex128, and K6 at the chain benchmark's batch and a ragged
-one.  Phase 2 also reads K1's, K2's, K4's, K5's and K6's (and complex64
+one, each with its host cost a call (2000 calls back to back) beside the
+launch floor (the profiler's device time of a one-element elementwise
+op).  Phase 2 also reads K1's, K2's, K4's, K5's and K6's (and complex64
 ``torch.matmul``'s, beside K4) device time a launch from the profiler
 beside their CUDA-event times.  Phases 3, 4 and 5 print K4's launches
 by route.  Each path (the batch solve, the single solves, the
@@ -115,7 +117,7 @@ from twoace_tpu_torch.utils.units import dbm_to_amplitude  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "scripts"))
-from torch_batch_ab import host_us, launch_floor_ms  # noqa: E402
+from torch_batch_ab import host_us, k5_inputs, launch_floor_ms  # noqa: E402
 
 NT = NR = 16
 N = NT * NR
@@ -529,6 +531,16 @@ def phase2_kernels():
     return summary
 
 
+def k6_case(batch, seed=6):
+    """K6's inputs at ``batch`` instances of 16x16: the chain benchmark's
+    kind (``chain_mm.lane_inputs``) as (B, n, n) pairs V and G on the
+    card."""
+    planes = chain_mm.lane_inputs(seed=seed, b=batch)
+    return tuple(chain_mm.from_lanes(Pair(*(torch.as_tensor(p, device="cuda")
+                                            for p in pl)))
+                 for pl in (planes[:2], planes[2:]))
+
+
 def phase2_k6(floor):
     """K6 against its plain version at K6_BATCHES of (16, 16) instances
     (8 steps), with the times of both, the host's cost of a call, of the
@@ -537,11 +549,7 @@ def phase2_k6(floor):
     step) beside the launch floor ``floor``."""
     out = {}
     for batch in K6_BATCHES:
-        planes = chain_mm.lane_inputs(seed=6, b=batch)
-        v = chain_mm.from_lanes(Pair(*(torch.as_tensor(p, device="cuda")
-                                       for p in planes[:2])))
-        g = chain_mm.from_lanes(Pair(*(torch.as_tensor(p, device="cuda")
-                                       for p in planes[2:])))
+        v, g = k6_case(batch)
         vc, gc = torch.complex(*v), torch.complex(*g)
         with no_tf32():
             got = pair_chain_mm(v, g)
@@ -604,17 +612,9 @@ def phase2_k5(floor):
     the host's cost of a call and the bound (each of ax, M, b, mu read
     once and y, M' written once, about 20 flops per complex entry) beside
     the launch floor ``floor``."""
-    gen = torch.Generator(device="cuda").manual_seed(5)
     out = {}
     for m, r, dtype, per_entry in K5_SHAPES:
-        rdt = torch.float32 if dtype == torch.complex64 else torch.float64
-        ax, md = (torch.randn(m, r, dtype=dtype, generator=gen, device="cuda")
-                  for _ in range(2))
-        b = torch.rand(m, dtype=rdt, generator=gen, device="cuda") + 0.5
-        b[m - 9:] = 0.0                       # padded (inactive) rows
-        ax[3] = 0.0                           # an all-zero row
-        md[3] = 0.0
-        mu = torch.tensor(0.41, dtype=rdt, device="cuda")
+        ax, b, md, mu = k5_inputs(m, r, dtype)
         got = fused_prox_dual(ax, b, md, mu, per_entry)
         want = prox_dual_rows_plain(ax, b, md, mu, per_entry)
         torch.cuda.synchronize()

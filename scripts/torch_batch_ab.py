@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """A/B timing of one of chip_smoke.py's cells between two checkouts on one
-GPU: phase 3's batch solve, phase 4's two-path single solve, a phase 5
-warm tracker's windows, or phase 2's K2, K3, K5 or K6 alone.
+GPU: phase 3's batch solve, phase 4's two-path single solve, phase 6's
+profiled complex solve, a phase 5 warm tracker's windows, or phase 2's K2,
+K3, K5 or K6 alone.
 
     python3 scripts/torch_batch_ab.py BASE_DIR
-        [--cell batch|single|warm|warm_fresh|k2|k3|k5|k6] [--pairs 10]
+        [--cell batch|single|campaign|warm|warm_fresh|k2|k3|k5|k6]
+        [--pairs 10]
         [--profile-head]
 
 Starts one worker process in the checkout that holds this script (head)
@@ -64,6 +66,12 @@ and then one in BASE_DIR (base).  Each imports its own tree's
   (the profiler's device ms of a one-element elementwise op).
   For the kernel cells, a run's rate is 1 / the first case's ms, and the
   summary gives each case's ms per side and base/head per pair.
+- ``campaign``: phase 6's profiled solve (``chip_smoke.campaign_workload``:
+  the complex ``solve_lowrank_multi`` at M = 1024, its K5 loop) once to
+  warm up; a run is one solve under torch.profiler (the device's own
+  events, ``chip_smoke.device_events``), and reports its wall ms, the
+  device's busy ms and share, its trips and wall ms a trip.  Its rate is
+  1 / the wall seconds.
 
 With ``--profile-head`` the head worker first takes one torch.profiler
 measurement (``chip_smoke.device_ms``) of an elementwise op, as phase 2
@@ -284,7 +292,7 @@ def kernel_cell(cell):
 
         others = small_kernels()
         if cell == "k5":
-            own = "prox_dual_rows"
+            own = "prox_dual"
             for m, r, dt, per_entry in K5_AB_SHAPES:
                 args = k5_inputs(m, r, getattr(torch, dt))
                 cases[f"K5 ({m}, {r}) {dt} per_entry {per_entry}"] = (
@@ -327,6 +335,49 @@ def kernel_cell(cell):
         first = next(iter(ms.values()))
         return dict(secs=sum(v or 0.0 for v in ms.values()) / 1e3,
                     rate=1.0 / first if first else float("nan"), ms=ms)
+
+    return run
+
+
+def campaign_cell():
+    """Phase 6's profiled M = 1024 complex solve, warmed up; returns its
+    timed run (under the profiler, as phase 6 runs it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from twoace_tpu_torch.ops import admm
+    from twoace_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from twoace_tpu_torch.pipeline import recovery
+    from twoace_tpu_torch.utils.units import dbm_to_amplitude
+
+    cb, _, rss, _ = cs.campaign_workload()
+    cc = recovery.CampaignConfig(array=cs.ArrayConfig(nt=cs.NT, nr=cs.NR))
+    a = cb[:cs.M]
+    b = dbm_to_amplitude(torch.as_tensor(rss[:cs.M], device=a.device),
+                         cc.rss_fct)
+
+    def solve():
+        return admm.solve_lowrank_multi(torch.Generator().manual_seed(0), a,
+                                        b, cs.NT, cs.NR, cc.admm)
+
+    solve()
+    torch.cuda.synchronize()
+
+    def run():
+        reset_launch_counts()
+        admm.infer_admm.trips = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            solve()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy = sum(ms for ms, _ in cs.device_events(prof).values())
+        trips = admm.infer_admm.trips
+        return dict(secs=wall_ms / 1e3, rate=1e3 / wall_ms, wall_ms=wall_ms,
+                    busy_ms=busy, busy_share=busy / wall_ms, trips=trips,
+                    ms_a_trip=wall_ms / max(trips, 1),
+                    launches=launch_counts())
 
     return run
 
@@ -446,7 +497,8 @@ def worker(cell, record_path, profile_first):
         print(f"profiled: {cs.device_ms(lambda: x * 2.0)} ms a launch",
               flush=True)
     run = (batch_cell() if cell == "batch" else single_cell()
-           if cell == "single" else kernel_cell(cell)
+           if cell == "single" else campaign_cell()
+           if cell == "campaign" else kernel_cell(cell)
            if cell in ("k2", "k3", "k5", "k6")
            else tracker_cell(cell, record_path))
     ready = {"ready": True}
@@ -470,6 +522,10 @@ def quartiles(v):
 
 
 def describe(r, unit):
+    if unit == "1/s":
+        return (f"wall {r['wall_ms']:.2f} ms | device busy {r['busy_ms']:.2f} "
+                f"ms ({100 * r['busy_share']:.1f}%) | {r['trips']} trips, "
+                f"{r['ms_a_trip']:.4f} ms a trip | launches {r['launches']}")
     if unit == "1/ms":
         return " | ".join(f"{k} {'not measured' if v is None else f'{v:.6f}'}"
                           f" ms" for k, v in r["ms"].items())
@@ -490,7 +546,7 @@ def describe(r, unit):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("base_dir")
-    ap.add_argument("--cell", choices=("batch", "single", "warm",
+    ap.add_argument("--cell", choices=("batch", "single", "campaign", "warm",
                                        "warm_fresh", "k2", "k3", "k5", "k6"),
                     default="batch")
     ap.add_argument("--pairs", type=int, default=10)
@@ -501,9 +557,9 @@ def main():
     if args.worker:
         return worker(args.cell, args.record, args.profile_head)
 
-    unit = {"batch": "rec/s", "single": "solves/s", "k2": "1/ms",
-            "k3": "1/ms", "k5": "1/ms", "k6": "1/ms"}.get(args.cell,
-                                                         "windows/s")
+    unit = {"batch": "rec/s", "single": "solves/s", "campaign": "1/s",
+            "k2": "1/ms", "k3": "1/ms", "k5": "1/ms",
+            "k6": "1/ms"}.get(args.cell, "windows/s")
     tmp = tempfile.TemporaryDirectory()
     record = os.path.join(tmp.name, "windows.pkl")
     dirs = {"head": HEAD_DIR, "base": os.path.abspath(args.base_dir)}
@@ -549,6 +605,11 @@ def main():
             summary[name].update(
                 nmse_db_median=float(np.median([r["nmse_db"] for r in rs])),
                 iters=sorted({r["iters"] for r in rs}))
+        elif unit == "1/s":
+            summary[name].update({k: quartiles([r[k] for r in rs]) for k in (
+                "wall_ms", "busy_ms", "busy_share", "ms_a_trip")})
+            summary[name].update(trips=sorted({r["trips"] for r in rs}),
+                                 launches=rs[-1]["launches"])
         elif unit == "1/ms":
             summary[name]["ms"] = {
                 k: quartiles([r["ms"][k] for r in rs if r["ms"][k]])

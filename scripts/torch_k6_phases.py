@@ -12,7 +12,7 @@ the first thread of block 0 stamps ``%globaltimer`` after each part of a
 launch and sums the nanoseconds per slot: loading V and G, the steps'
 products, their norms with the barriers (and the writes of V for the next
 step), and the stores.  For each batch (16x16 instances, 8 steps, the
-chain benchmark's inputs ``chain_mm.lane_inputs``) it prints the
+chain benchmark's kind of input, ``chip_smoke.k6_case``) it prints the
 microseconds a launch per slot beside the normal build's CUDA-event and
 profiler device time of the same launch.  With ``--out``, writes every
 number as JSON.
@@ -96,21 +96,6 @@ def fmt_split(split):
         f"{k} {v:.2f} ({100 * v / total:.0f}%)" for k, v in split.items()))
 
 
-def chain_case(batch, seed=6):
-    """chip_smoke.py phase 2's K6 inputs at ``batch`` instances of 16x16:
-    V and G as (B, n, n) pairs on the card."""
-    import torch
-
-    from twoace_tpu_torch.ops.cplx import Pair
-
-    planes = chain_mm.lane_inputs(seed=seed, b=batch)
-    v = chain_mm.from_lanes(Pair(*(torch.as_tensor(p, device="cuda")
-                                   for p in planes[:2])))
-    g = chain_mm.from_lanes(Pair(*(torch.as_tensor(p, device="cuda")
-                                   for p in planes[2:])))
-    return v, g
-
-
 def main():
     import chip_smoke as cs
     from torch_k4_routes import ptxas_report
@@ -130,7 +115,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         lib = build_timer_lib(tmp)
         for batch in args.batches:
-            v, g = chain_case(batch)
+            v, g = cs.k6_case(batch)
 
             def launch():
                 return chain_mm.pair_chain_mm(v, g)

@@ -5,8 +5,11 @@ On the CPU the wrapper runs its plain PyTorch version, which is held
 against the Pallas kernel it replaces (``chain_kernel`` of
 ``scripts/bench_pallas_mm.py``, in interpret mode, in both of its
 contraction layouts) and against the numpy complex128 chain the script
-checks itself with.  The CUDA kernel is held against the plain version on
-the card by the ``gpu``-marked test (and by chip_smoke.py).
+checks itself with.  The kernel's own arithmetic (3xTF32 tensor-core
+products, each k8 step flushed into float32) is repeated in plain torch
+by ``chain_mm_emulated``, and held to the same three.  The CUDA kernel is
+held against the plain version on the card by the ``gpu``-marked test
+(and by chip_smoke.py).
 """
 
 import importlib.util
@@ -80,6 +83,42 @@ def test_plain_matches_pallas_interpret(script, mode):
         np.testing.assert_allclose(x.numpy(), w, atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("mode", ["mid", "kfirst"])
+def test_emulation_matches_pallas_interpret(script, mode):
+    """The kernel's arithmetic (``chain_mm_emulated``) against one launch
+    of ``chain_kernel`` in each contraction layout, on the script's own
+    inputs: within 1e-6 absolute, as the plain version is held (3xTF32
+    products stand about 2^-22 from float32's)."""
+    planes = k6.lane_inputs(seed=0)
+    want = _pallas_chain(script, planes, mode)
+    v = k6.from_lanes(Pair(*(torch.tensor(p) for p in planes[:2])))
+    g = k6.from_lanes(Pair(*(torch.tensor(p) for p in planes[2:])))
+    got = k6.to_lanes(k6.chain_mm_emulated(v, g))
+    for x, w in zip(got, want):
+        np.testing.assert_allclose(x.numpy(), w, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("n", [8, 12, 16, 32])
+def test_emulation_matches_plain_and_complex128(n):
+    """At B 32 and n 8, 12 (zero-padded to 16 in the kernel's tiles), 16
+    and 32: one launch's 8 steps of the kernel's arithmetic within
+    chip_smoke.py's K6_RTOL (1e-5 of the largest entry) of the plain
+    version, and 800 products within 2e-5 of the numpy complex128 chain,
+    as the plain version is held (bench_pallas_mm.py:111-122)."""
+    planes = k6.lane_inputs(seed=7, b=32, n=n)
+    v = k6.from_lanes(Pair(*(torch.tensor(p) for p in planes[:2])))
+    g = k6.from_lanes(Pair(*(torch.tensor(p) for p in planes[2:])))
+    got, want = k6.chain_mm_emulated(v, g), k6.pair_chain_mm_plain(v, g)
+    for x, w in zip(got, want):
+        assert float((x - w).abs().max() / w.abs().max()) <= 1e-5
+    products = k6.REPS * k6.CHAIN
+    long = k6.chain_mm_emulated(v, g, steps=products)
+    ref = k6.numpy_chain(np.transpose(planes[0] + 1j * planes[1], (2, 0, 1)),
+                         np.transpose(planes[2] + 1j * planes[3], (2, 0, 1)),
+                         products)
+    assert np.abs(long.re.numpy() + 1j * long.im.numpy() - ref).max() < 2e-5
+
+
 def test_hundred_launches_match_numpy_complex128():
     """100 launches of the plain chain (800 products) against the numpy
     complex128 chain of bench_pallas_mm.py:111-122, and the library
@@ -127,13 +166,15 @@ def test_wrapper_checks_reject_what_the_kernel_does_not_take():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch", [256, 100])
-def test_chain_kernel_matches_plain_on_card(batch):
-    """K6 against its plain version at the benchmark's (256, 16, 16) and a
-    ragged batch: max |K6 - plain| over max |plain| within 1e-5
-    (chip_smoke.py's tolerance)."""
+@pytest.mark.parametrize("batch, n", [(256, 16), (100, 16), (1, 16),
+                                      (32, 8), (32, 12), (32, 32)])
+def test_chain_kernel_matches_plain_on_card(batch, n):
+    """K6 against its plain version at the benchmark's (256, 16, 16), a
+    ragged batch, one instance, and n 8, 12 (zero-padded tiles) and 32
+    (G's fragments in shared memory): max |K6 - plain| over max |plain|
+    within 1e-5 (chip_smoke.py's tolerance)."""
     require_cuda()
-    planes = k6.lane_inputs(seed=3, b=batch)
+    planes = k6.lane_inputs(seed=3, b=batch, n=n)
     v = k6.from_lanes(Pair(*(torch.tensor(p, device="cuda")
                              for p in planes[:2])))
     g = k6.from_lanes(Pair(*(torch.tensor(p, device="cuda")

@@ -15,7 +15,10 @@ JAX package and the MATLAB-transcript goldens.
 - the spectral initialization's projector X X^H against the golden
   ``si_proj`` (1e-7, the oracle's tolerance), and its subspace iteration
   against JAX's;
-- K5 itself against its plain version, on the card only.
+- K5's launch geometry (``prox_dual_rows.plan``) against what the kernel
+  needs of it, over r 1 ... 64, ragged rows and both dtypes;
+- K5 itself against its plain version, and ``plan`` against the kernel's
+  own, on the card only.
 """
 
 import os
@@ -245,16 +248,102 @@ def test_k5_wrapper_checks_what_the_kernel_takes():
             _check(*args)
 
 
+#: rows of the plan tests: none, one, ragged, the main path's, many
+PLAN_ROWS = (0, 1, 7, 80, 97, 972, 1024, 5000)
+
+
+@pytest.mark.parametrize("per_entry", [False, True])
+def test_k5_plan_covers_every_entry_once(per_entry):
+    """Over r 1 ... 64 and ragged rows: in the row form a row's lanes hold
+    all its entries, each lane at most ``chunks`` of them (in registers up
+    to 4, ``held``), and a warp's rows fit its 32 lanes; the blocks (1-8
+    warps) cover every row (every entry, in the elementwise form) with
+    less than one block to spare, and leave no SM idle that a warp could
+    fill."""
+    from twoace_tpu_torch.ops.kernels.prox_dual_rows import (
+        MAX_HELD, MAX_WARPS, NUM_SMS, plan)
+
+    for r in range(1, 65):
+        for rows in PLAN_ROWS:
+            p = plan(rows, r, per_entry)
+            where = f"rows {rows} r {r}: {p}"
+            warps_block = p["threads"] // 32
+            assert p["threads"] % 32 == 0, where
+            assert 1 <= warps_block <= MAX_WARPS, where
+            assert p["elementwise"] == int(per_entry or r == 1), where
+            if p["elementwise"]:
+                per_block = p["threads"]
+                work, warps = rows * r, -(-rows * r // 32)
+            else:
+                assert p["lanes"] * p["rows_per_warp"] <= 32, where
+                assert p["lanes"] == min(r, 32), where
+                assert p["lanes"] * p["chunks"] >= r, where
+                assert p["lanes"] * (p["chunks"] - 1) < r, where
+                if p["chunks"] <= MAX_HELD:
+                    assert p["chunks"] <= p["held"] <= MAX_HELD, where
+                else:
+                    assert p["held"] == 0, where
+                per_block = warps_block * p["rows_per_warp"]
+                work, warps = rows, -(-rows // p["rows_per_warp"])
+            assert p["blocks"] * per_block >= work, where
+            assert (p["blocks"] - 1) * per_block < max(work, 1), where
+            assert p["blocks"] >= min(NUM_SMS, warps), where
+
+
+def test_k5_plan_at_the_main_path_shapes():
+    """The campaign's (972, 20): a row of 20 lanes a warp, 139 blocks of 7
+    warps; its per-entry pass 152 blocks of 4; the refine's (1024, 1) runs
+    the elementwise form; r 3 packs 10 rows a warp; r 33 and 64 hold 2
+    entries a lane, r 300 runs the two-pass form."""
+    from twoace_tpu_torch.ops.kernels.prox_dual_rows import plan
+
+    main = plan(972, 20)
+    assert (main["lanes"], main["rows_per_warp"]) == (20, 1)
+    assert (main["threads"], main["blocks"]) == (224, 139)
+    entries = plan(972, 20, per_entry=True)
+    assert (entries["threads"], entries["blocks"]) == (128, 152)
+    assert plan(1024, 1)["elementwise"]
+    assert plan(97, 3)["rows_per_warp"] == 10
+    assert plan(10, 33)["chunks"] == plan(10, 64)["chunks"] == 2
+    assert plan(10, 300)["held"] == 0
+
+
+@pytest.mark.gpu
+def test_k5_plan_matches_the_kernel():
+    """The Python plan is the kernel's own (C
+    ``twoace_prox_dual_rows_plan``)."""
+    import ctypes
+
+    require_cuda()
+    from twoace_tpu_torch.ops.kernels import _build
+    from twoace_tpu_torch.ops.kernels.prox_dual_rows import plan
+
+    fn = _build.library().twoace_prox_dual_rows_plan
+    out = (ctypes.c_int * 7)()
+    keys = ("elementwise", "lanes", "rows_per_warp", "chunks", "held",
+            "threads", "blocks")
+    for per_entry in (False, True):
+        for r in (1, 2, 3, 20, 33, 64, 300):
+            for rows in PLAN_ROWS:
+                assert fn(rows, r, int(per_entry), out) == 0
+                assert dict(zip(keys, out)) == plan(rows, r, per_entry)
+
+
 @pytest.mark.gpu
 def test_k5_kernel_matches_plain_on_card():
     """K5 on the card against its plain version at the slice's shapes
     (campaign pass 1 and 2, the refine's r = 1, a tracker window with
-    padded rows, a ragged m) in complex64, and once in complex128."""
+    padded rows, a ragged m) in complex64, and once in complex128; then
+    rows longer than a warp (r 33, 64: two entries a lane; r 300: read
+    twice) in both dtypes and forms."""
     require_cuda()
     rng = np.random.default_rng(0)
     cases = [(972, 20, np.complex64, False), (972, 20, np.complex64, True),
              (1024, 1, np.complex64, False), (80, 20, np.complex64, False),
-             (97, 3, np.complex64, True), (972, 20, np.complex128, False)]
+             (97, 3, np.complex64, True), (972, 20, np.complex128, False),
+             *((m, r, dt, pe) for m, r in ((97, 33), (80, 64), (9, 300))
+               for dt in (np.complex64, np.complex128)
+               for pe in (False, True))]
     for m, r, dtype, per_entry in cases:
         ax, md, b = _state(rng, m, r, dtype)
         rdt = torch.float32 if dtype == np.complex64 else torch.float64

@@ -45,6 +45,7 @@ SIGNATURES = {
     "twoace_pair_matmul_tc": [_P] * 6 + [_I] * 4 + [_P],
     "twoace_pair_matmul_rows": [_P] * 6 + [_I] * 5 + [_P],
     "twoace_prox_dual_rows": [_P] * 6 + [_L, _I, _I, _I, _P],
+    "twoace_prox_dual_rows_plan": [_L, _I, _I, _P],
     "twoace_chain_mm": [_P] * 6 + [_I, _I, _I, _P],
 }
 

@@ -26,7 +26,9 @@ from . import _build
 
 #: the TPU benchmark's sizes (bench_pallas_mm.py:28-29)
 B, N, CHAIN, REPS = 256, 16, 8, 100
-#: the kernel puts one thread on each of the n * n entries of an instance
+#: the kernel runs an instance on one warp's m16 x n8 tensor-core tiles,
+#: n zero-padded up to a multiple of 8, and holds G's split fragments in
+#: registers up to n 16 and in shared memory up to MAX_N
 MAX_N = 32
 
 
@@ -57,7 +59,41 @@ def pair_chain_mm_plain(v: Pair, g: Pair, steps: int = CHAIN) -> Pair:
     return Pair(vr, vi)
 
 
+def chain_mm_emulated(v: Pair, g: Pair, steps: int = CHAIN) -> Pair:
+    """The kernel's arithmetic in plain torch: each product V G in 3xTF32
+    with every k8 step flushed into float32 (``zprox.matmul_3xtf32``, the
+    Karatsuba 3M terms), then the scale rsqrt(sum |V|^2 + 1e-30).  For the
+    CPU tests; nothing else calls it."""
+    from .zprox import matmul_3xtf32
+
+    for _ in range(steps):
+        vr, vi = matmul_3xtf32(v, g)
+        scale = torch.rsqrt(torch.sum(vr * vr + vi * vi, dim=(-2, -1),
+                                      keepdim=True) + 1e-30)
+        v = Pair(vr * scale, vi * scale)
+    return v
+
+
+def _fits(v: Pair, g: Pair) -> bool:
+    """Every check of :func:`_check` at once, without its messages, for a
+    CUDA ``v.re`` (devices compared by their index, dtypes by identity)."""
+    shape, dev = v.re.shape, v.re.get_device()
+    f32 = torch.float32
+    vi, gr, gi = v.im, g.re, g.im
+    return (len(shape) == 3 and shape[1] == shape[2] <= MAX_N
+            and v.re.dtype is f32 and vi.dtype is f32 and gr.dtype is f32
+            and gi.dtype is f32 and vi.shape == shape and gr.shape == shape
+            and gi.shape == shape and vi.is_cuda and gr.is_cuda
+            and gi.is_cuda and vi.get_device() == dev
+            and gr.get_device() == dev and gi.get_device() == dev
+            and v.re.is_contiguous() and vi.is_contiguous()
+            and gr.is_contiguous() and gi.is_contiguous())
+
+
 def _check(v: Pair, g: Pair) -> None:
+    """Raise unless the kernel takes these pairs, saying why."""
+    if _fits(v, g):
+        return
     if v.re.dim() != 3 or v.re.shape[-1] != v.re.shape[-2]:
         raise ValueError(f"need (B, n, n) pairs, got {tuple(v.re.shape)}")
     b, n, _ = v.re.shape
@@ -72,28 +108,40 @@ def _check(v: Pair, g: Pair) -> None:
 def pair_chain_mm(v: Pair, g: Pair, steps: int = CHAIN) -> Pair:
     """``steps`` renormalised products V <- V G of contiguous float32
     (B, n, n) pairs, n <= 32; returns the (B, n, n) pair."""
-    if v.re.device.type == "cpu":
-        return pair_chain_mm_plain(v, g, steps)
-    if v.re.device.type != "cuda":
+    if not v.re.is_cuda:
+        if v.re.device.type == "cpu":
+            return pair_chain_mm_plain(v, g, steps)
         raise ValueError(f"unsupported device {v.re.device}")
     if steps < 0:
         raise ValueError(f"steps must be >= 0, got {steps}")
     _check(v, g)
     b, n, _ = v.re.shape
-    out = [torch.empty_like(v.re) for _ in range(2)]
+    out_r, out_i = torch.empty_like(v.re), torch.empty_like(v.re)
     if b == 0:
-        return Pair(*out)
-    lib = _build.library()
-    stream = torch.cuda.current_stream(v.re.device).cuda_stream
-    rc = lib.twoace_chain_mm(
+        return Pair(out_r, out_i)
+    # the raw stream query: torch.cuda.current_stream builds a Stream
+    # object (about 4 us a call)
+    rc = (_fn or _function())(
         v.re.data_ptr(), v.im.data_ptr(), g.re.data_ptr(), g.im.data_ptr(),
-        out[0].data_ptr(), out[1].data_ptr(), b, n, steps, stream)
-    _build.check(rc, "pair_chain_mm")
+        out_r.data_ptr(), out_i.data_ptr(), b, n, steps,
+        torch._C._cuda_getCurrentRawStream(v.re.get_device()))
+    if rc:
+        _build.check(rc, "pair_chain_mm")
     pair_chain_mm.launches += 1
-    return Pair(*out)
+    return Pair(out_r, out_i)
 
 
 pair_chain_mm.launches = 0
+
+_fn = None
+
+
+def _function():
+    """The C entry point, looked up once (``scripts/torch_k6_phases.py``
+    resets it to call its timer build)."""
+    global _fn
+    _fn = _build.library().twoace_chain_mm
+    return _fn
 
 
 def library_chain(v, g, steps: int = CHAIN):

@@ -6,7 +6,8 @@ and M-dual of the complex-dtype loop (``ops.admm.infer_admm``), on
 complex64 or complex128 tensors read in place, with the elementwise form
 (``per_entry=True``) that the per-column pass runs.  A CPU tensor takes
 the plain version :func:`prox_dual_rows_plain`; a CUDA tensor launches
-the kernel or raises.
+the kernel or raises.  :func:`plan` is the kernel's launch geometry (the C
+``twoace_prox_dual_rows_plan``), for the tests.
 """
 
 from __future__ import annotations
@@ -29,7 +30,62 @@ def prox_dual_rows_plain(ax, b, m_dual, mu, per_entry: bool = False):
     return y, m_new
 
 
+#: the kernel's geometry constants (csrc/prox_dual_rows.cu): the H100
+#: SXM's SMs, a block's most warps, the most entries a lane holds in
+#: registers
+NUM_SMS, MAX_WARPS, MAX_HELD = 132, 8, 4
+
+
+def plan(rows: int, r: int, per_entry: bool = False) -> dict:
+    """The kernel's launch geometry for ``rows`` rows of ``r`` entries (the
+    C ``twoace_prox_dual_rows_plan``), the same for both dtypes: one entry
+    a lane.  The elementwise form (and the row form at r = 1) is one
+    entry a lane and nothing else.  The row form gives a row ``lanes``
+    lanes, a warp ``rows_per_warp`` rows, a lane ``chunks`` entries,
+    ``held`` of them in registers (0: read twice).  A block holds
+    ``threads`` (1-8 warps: as few as leave a block for each SM)."""
+    elementwise = bool(per_entry) or r == 1
+    if elementwise:
+        lanes = rows_per_warp = 0
+        chunks = held = 1
+        warps = -(-rows * r // 32)
+    else:
+        lanes = min(r, 32)
+        rows_per_warp = 32 // lanes
+        chunks = -(-r // lanes)
+        held = 1
+        while held < chunks:
+            held *= 2
+        held = held if held <= MAX_HELD else 0
+        warps = -(-rows // rows_per_warp)
+    per_block = min(max(warps // NUM_SMS, 1), MAX_WARPS)
+    return dict(elementwise=int(elementwise), lanes=lanes,
+                rows_per_warp=rows_per_warp, chunks=chunks, held=held,
+                threads=32 * per_block, blocks=-(-warps // per_block))
+
+
+def _fits(ax, b, m_dual, mu) -> bool:
+    """Every check of :func:`_check` at once, without its messages, for a
+    CUDA ``ax`` (devices compared by their index, dtypes by identity)."""
+    rdt = _REAL.get(ax.dtype)
+    dev = ax.get_device()
+    shape = ax.shape
+    return (rdt is not None and len(shape) >= 2
+            and isinstance(m_dual, torch.Tensor)
+            and isinstance(b, torch.Tensor) and isinstance(mu, torch.Tensor)
+            and m_dual.dtype is ax.dtype and b.dtype is rdt
+            and mu.dtype is rdt and m_dual.is_cuda and b.is_cuda
+            and mu.is_cuda and m_dual.get_device() == dev
+            and b.get_device() == dev and mu.get_device() == dev
+            and m_dual.shape == shape and b.shape == shape[:-1]
+            and mu.dim() == 0 and ax.is_contiguous()
+            and m_dual.is_contiguous() and b.is_contiguous())
+
+
 def _check(ax, b, m_dual, mu) -> None:
+    """Raise unless the kernel takes these operands, saying why."""
+    if _fits(ax, b, m_dual, mu):
+        return
     if ax.dtype not in _REAL:
         raise ValueError(f"ax: need complex64 or complex128, got {ax.dtype}")
     rdt = _REAL[ax.dtype]
@@ -61,9 +117,9 @@ def fused_prox_dual(ax, b, m_dual, mu, per_entry: bool = False):
     each row (``scale_by_row=True``), ``True`` the norm of each entry.
     Returns ``(y, m_new)``.
     """
-    if ax.device.type == "cpu":
-        return prox_dual_rows_plain(ax, b, m_dual, mu, per_entry)
-    if ax.device.type != "cuda":
+    if not ax.is_cuda:
+        if ax.device.type == "cpu":
+            return prox_dual_rows_plain(ax, b, m_dual, mu, per_entry)
         raise ValueError(f"unsupported device {ax.device}")
     _check(ax, b, m_dual, mu)
     y, m_new = torch.empty_like(ax), torch.empty_like(ax)
@@ -71,15 +127,26 @@ def fused_prox_dual(ax, b, m_dual, mu, per_entry: bool = False):
     rows = ax.numel() // r if r else 0
     if rows == 0:
         return y, m_new
-    lib = _build.library()
-    stream = torch.cuda.current_stream(ax.device).cuda_stream
-    rc = lib.twoace_prox_dual_rows(
+    # the raw stream query: torch.cuda.current_stream builds a Stream
+    # object (about 4 us a call)
+    rc = (_fn or _function())(
         ax.data_ptr(), m_dual.data_ptr(), b.data_ptr(), mu.data_ptr(),
-        y.data_ptr(), m_new.data_ptr(), rows, r, int(per_entry),
-        int(ax.dtype == torch.complex128), stream)
-    _build.check(rc, "fused_prox_dual")
+        y.data_ptr(), m_new.data_ptr(), rows, r, 1 if per_entry else 0,
+        1 if ax.dtype == torch.complex128 else 0,
+        torch._C._cuda_getCurrentRawStream(ax.get_device()))
+    if rc:
+        _build.check(rc, "fused_prox_dual")
     fused_prox_dual.launches += 1
     return y, m_new
 
 
 fused_prox_dual.launches = 0
+
+_fn = None
+
+
+def _function():
+    """The C entry point, looked up once."""
+    global _fn
+    _fn = _build.library().twoace_prox_dual_rows
+    return _fn
