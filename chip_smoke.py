@@ -1007,7 +1007,8 @@ def profile_call(label, fn):
     """One call of ``fn`` under torch.profiler: device time by kernel
     against the call's wall time, from the device's own events
     (:func:`device_events`); recording the host's ops of a many-trip
-    solve costs minutes of post-processing.  Returns ``fn()``'s result."""
+    solve costs minutes of post-processing.  Returns the call's wall ms
+    (without the profiler's post-processing)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1020,14 +1021,14 @@ def profile_call(label, fn):
     if total <= 0:
         print(f"{label} device time not measured (the profiler saw no "
               "CUDA kernels)", flush=True)
-        return out
+        return wall_ms
     top = sorted(events.items(), key=lambda kv: -kv[1][0])[:6]
     parts = " | ".join(f"{name[:40]} {ms:.2f} ms x{count}"
                        for name, (ms, count) in top)
     print(f"{label} under the profiler: wall {wall_ms:.2f} ms, device busy "
           f"{total:.2f} ms ({100 * total / wall_ms:.1f}%) | {parts}",
           flush=True)
-    return out
+    return wall_ms
 
 
 def single_workload():
@@ -1515,14 +1516,15 @@ def phase6_campaign(cold_k3):
     a = cb[:M]
     b = dbm_to_amplitude(torch.as_tensor(rss[:M], device=a.device),
                          cc.rss_fct)
-    _, _, wall, counts = run_campaign("the profiled solve", lambda: profile_call(
-        f"[6 profile] solve_lowrank_multi M {M}",
-        lambda: admm.solve_lowrank_multi(torch.Generator().manual_seed(0), a,
-                                         b, NT, NR, cc.admm)))
+    wall_ms, _, _, counts = run_campaign(
+        "the profiled solve", lambda: profile_call(
+            f"[6 profile] solve_lowrank_multi M {M}",
+            lambda: admm.solve_lowrank_multi(
+                torch.Generator().manual_seed(0), a, b, NT, NR, cc.admm)))
     add(counts)
     trips = admm.infer_admm.trips
     print(f"[6 profile] {trips} trips, K5 launches "
-          f"{counts['fused_prox_dual']}: {1e3 * wall / max(trips, 1):.3f} ms "
+          f"{counts['fused_prox_dual']}: {wall_ms / max(trips, 1):.3f} ms "
           f"a trip (wall under the profiler)", flush=True)
     return totals
 
