@@ -117,7 +117,8 @@ from twoace_tpu_torch.utils.units import dbm_to_amplitude  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "scripts"))
-from torch_batch_ab import host_us, k5_inputs, launch_floor_ms  # noqa: E402
+from torch_kernel_common import (  # noqa: E402
+    host_us, k5_inputs, launch_floor_ms)
 
 NT = NR = 16
 N = NT * NR
@@ -544,9 +545,12 @@ def k6_case(batch, seed=6):
 def phase2_k6(floor):
     """K6 against its plain version at K6_BATCHES of (16, 16) instances
     (8 steps), with the times of both, the host's cost of a call, of the
-    complex64 ``torch.matmul`` chain and the bound (V and G read once and
-    V' written once, and the Karatsuba chain's 3 real n x n x n products a
-    step) beside the launch floor ``floor``."""
+    complex64 ``torch.matmul`` chain and the bound beside the launch floor
+    ``floor``: V and G read once and V' written once, or the operations,
+    the Karatsuba chain's 3 real n x n x n products a step in 3xTF32 on
+    the tensor cores and about 10 float32 flops a complex entry a step
+    (the Karatsuba sums, the norm and the scale), whichever is larger; the
+    FP32 time of all of it is printed beside."""
     out = {}
     for batch in K6_BATCHES:
         v, g = k6_case(batch)
@@ -567,17 +571,25 @@ def phase2_k6(floor):
             dev = device_ms(lambda: pair_chain_mm(v, g))
             host = host_us(lambda: pair_chain_mm(v, g))
         n = chain_mm.N
-        bnd = bound(nbytes(v, g, got),
-                    chain_mm.CHAIN * batch * 3 * 2 * n ** 3)
+        prod = chain_mm.CHAIN * batch * 3 * 2 * n ** 3
+        rest = chain_mm.CHAIN * batch * 10 * n * n
+        t_bytes = nbytes(v, g, got) / PEAK_BYTES * 1e3
+        t_tf32 = (3 * prod / PEAK_TF32 + rest / PEAK_FP32) * 1e3
+        t_fp32 = (prod + rest) / PEAK_FP32 * 1e3
+        bnd = (dict(bound_ms=t_bytes, bound_by="bytes") if t_bytes >= t_tf32
+               else dict(bound_ms=t_tf32, bound_by="operations"))
+        share = (f"{100 * bnd['bound_ms'] / dev:.1f}% of the "
+                 f"{bnd['bound_by']} bound" if dev else "not measured")
         print(f"[2 K6 pair_chain_mm] B {batch}, {n}x{n}, {chain_mm.CHAIN} "
               f"steps: max rel err {rel:.3e} (tol {K6_RTOL}), max abs err "
               f"{err:.3e} | kernel {ms:.4f} ms (events), device "
               f"{fmt_ms(dev)} per launch (profiler) | host "
               f"{host['events_us']:.2f} us a call (events; host clock "
               f"{host['clock_us']:.2f}) | plain {plain:.4f} ms | "
-              f"complex64 torch.matmul chain {lib:.4f} ms | bound "
-              f"{bnd['bound_ms']:.6f} ms ({bnd['bound_by']}) | launch floor "
-              f"{fmt_ms(floor)}", flush=True)
+              f"complex64 torch.matmul chain {lib:.4f} ms | bounds: bytes "
+              f"{t_bytes:.6f} ms, 3xTF32 {t_tf32:.6f} ms, FP32 {t_fp32:.6f} "
+              f"ms | roofline share {share} | launch floor {fmt_ms(floor)}",
+              flush=True)
         out[batch] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                           device_ms=dev, **bnd, library_ms=lib)
     return out[K6_BATCHES[0]]

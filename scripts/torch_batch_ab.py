@@ -55,15 +55,17 @@ and then one in BASE_DIR (base).  Each imports its own tree's
   (chip_smoke.py's ``K5_SHAPES``: the campaign's (972, 20) in the row
   and the per-entry form, the refine's (1024, 1), a tracker window's
   (80, 20), a ragged (97, 3) and complex128), on phase 2's kind of input
-  drawn from one seed (``k5_inputs``).
+  drawn from one seed (``torch_kernel_common.k5_inputs``).
 - ``k6``: K6 (``pair_chain_mm``) alone at B 256 and 100 (16x16, 8 steps,
   the chain benchmark's inputs).
   For ``k5`` and ``k6`` a run reads, per shape, the profiler's device ms
   a launch back to back and with each launch after 41 small kernels (as
   the complex loop's trip runs them; the kernel's own events only), and
-  the host's cost of a call (``host_us``: 2000 back-to-back calls, on
-  CUDA events and on the host clock, in ms a call), and the launch floor
-  (the profiler's device ms of a one-element elementwise op).
+  the host's cost of a call (``torch_kernel_common.host_us``: 2000
+  back-to-back calls, on CUDA events and on the host clock, in ms a
+  call), the host's cost of the wrapper's argument checks alone (its
+  ``_check``, on the host clock), and the launch floor (the profiler's
+  device ms of a one-element elementwise op).
   For the kernel cells, a run's rate is 1 / the first case's ms, and the
   summary gives each case's ms per side and base/head per pair.
 - ``campaign``: phase 6's profiled solve (``chip_smoke.campaign_workload``:
@@ -201,55 +203,6 @@ K5_AB_SHAPES = ((972, 20, "complex64", False), (972, 20, "complex64", True),
                 (1024, 1, "complex64", False), (80, 20, "complex64", False),
                 (97, 3, "complex64", True), (972, 20, "complex128", False))
 K6_AB_BATCHES = (256, 100)
-#: the calls ``host_us`` times
-HOST_CALLS = 2000
-
-
-def k5_inputs(m, r, dtype, seed=5):
-    """K5's inputs of phase 2's kind at (m, r): ax and M normal, b in
-    [0.5, 1.5) with 9 padded (b = 0) rows, row 3 all zero, mu 0.41."""
-    import torch
-
-    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    ax, md = (torch.randn(m, r, dtype=dtype, generator=gen, device="cuda")
-              for _ in range(2))
-    b = torch.rand(m, dtype=rdt, generator=gen, device="cuda") + 0.5
-    b[m - 9:] = 0.0
-    ax[3] = 0.0
-    md[3] = 0.0
-    return ax, b, md, torch.tensor(0.41, dtype=rdt, device="cuda")
-
-
-def host_us(fn, calls=HOST_CALLS):
-    """The host's cost of a call of ``fn``: ``calls`` calls back to back
-    (no sync between them), timed by CUDA events and by the host clock;
-    returns both in microseconds a call.  Where the device runs each call
-    in less time than the host takes to issue it, the two agree."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    t1 = time.perf_counter()
-    stop.record()
-    torch.cuda.synchronize()
-    return dict(events_us=start.elapsed_time(stop) * 1e3 / calls,
-                clock_us=(t1 - t0) * 1e6 / calls)
-
-
-def launch_floor_ms(device_ms):
-    """The profiler's device ms of a one-element elementwise op: a floor
-    for reading a kernel whose work is far below one launch."""
-    import torch
-
-    x = torch.ones(1, device="cuda")
-    return device_ms(lambda: x * 2.0)
 
 
 def small_kernels():
@@ -273,7 +226,7 @@ def kernel_cell(cell):
     import chip_smoke as cs
     from twoace_tpu_torch.ops.kernels import fused_infer_admm, fused_zprox_t
 
-    cases, between, host, own = {}, {}, {}, None
+    cases, between, host, checks, own = {}, {}, {}, {}, None
     if cell == "k2":
         others, own = small_kernels(), "zprox"
         for lanes, r, nt, nr in K2_AB_SHAPES:
@@ -286,18 +239,22 @@ def kernel_cell(cell):
     elif cell in ("k5", "k6"):
         import torch
 
+        from torch_kernel_common import (HOST_CALLS, host_us, k5_inputs,
+                                         launch_floor_ms)
         from twoace_tpu_torch.ops.cplx import Pair
         from twoace_tpu_torch.ops.kernels import (chain_mm, fused_prox_dual,
-                                                  pair_chain_mm)
+                                                  pair_chain_mm,
+                                                  prox_dual_rows)
 
         others = small_kernels()
         if cell == "k5":
             own = "prox_dual"
             for m, r, dt, per_entry in K5_AB_SHAPES:
                 args = k5_inputs(m, r, getattr(torch, dt))
-                cases[f"K5 ({m}, {r}) {dt} per_entry {per_entry}"] = (
-                    lambda args=args, pe=per_entry:
-                    fused_prox_dual(*args, per_entry=pe))
+                name = f"K5 ({m}, {r}) {dt} per_entry {per_entry}"
+                cases[name] = (lambda args=args, pe=per_entry:
+                               fused_prox_dual(*args, per_entry=pe))
+                checks[name] = lambda args=args: prox_dual_rows._check(*args)
         else:
             own = "chain_mm"
             for batch in K6_AB_BATCHES:
@@ -305,8 +262,9 @@ def kernel_cell(cell):
                 v, g = (chain_mm.from_lanes(Pair(*(
                     torch.as_tensor(p, device="cuda") for p in pl)))
                     for pl in (planes[:2], planes[2:]))
-                cases[f"K6 B {batch} {chain_mm.N}x{chain_mm.N}"] = (
-                    lambda v=v, g=g: pair_chain_mm(v, g))
+                name = f"K6 B {batch} {chain_mm.N}x{chain_mm.N}"
+                cases[name] = lambda v=v, g=g: pair_chain_mm(v, g)
+                checks[name] = lambda v=v, g=g: chain_mm._check(v, g)
         for name, launch in list(cases.items()):
             between[f"{name} between others"] = (
                 lambda launch=launch: (others(), launch()))
@@ -330,6 +288,10 @@ def kernel_cell(cell):
             us = host_us(fn)
             ms[name] = us["events_us"] / 1e3
             ms[name.replace("(events", "(host clock")] = us["clock_us"] / 1e3
+        for name, fn in checks.items():
+            # the wrapper's argument checks alone (they launch nothing)
+            ms[f"{name} checks (host clock, {HOST_CALLS} calls)"] = (
+                host_us(fn)["clock_us"] / 1e3)
         if host:
             ms["launch floor (one-element op)"] = launch_floor_ms(cs.device_ms)
         first = next(iter(ms.values()))

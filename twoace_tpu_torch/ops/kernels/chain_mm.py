@@ -74,35 +74,26 @@ def chain_mm_emulated(v: Pair, g: Pair, steps: int = CHAIN) -> Pair:
     return v
 
 
-def _fits(v: Pair, g: Pair) -> bool:
-    """Every check of :func:`_check` at once, without its messages, for a
-    CUDA ``v.re`` (devices compared by their index, dtypes by identity)."""
-    shape, dev = v.re.shape, v.re.get_device()
-    f32 = torch.float32
-    vi, gr, gi = v.im, g.re, g.im
-    return (len(shape) == 3 and shape[1] == shape[2] <= MAX_N
-            and v.re.dtype is f32 and vi.dtype is f32 and gr.dtype is f32
-            and gi.dtype is f32 and vi.shape == shape and gr.shape == shape
-            and gi.shape == shape and vi.is_cuda and gr.is_cuda
-            and gi.is_cuda and vi.get_device() == dev
-            and gr.get_device() == dev and gi.get_device() == dev
-            and v.re.is_contiguous() and vi.is_contiguous()
-            and gr.is_contiguous() and gi.is_contiguous())
-
-
 def _check(v: Pair, g: Pair) -> None:
-    """Raise unless the kernel takes these pairs, saying why."""
-    if _fits(v, g):
-        return
-    if v.re.dim() != 3 or v.re.shape[-1] != v.re.shape[-2]:
-        raise ValueError(f"need (B, n, n) pairs, got {tuple(v.re.shape)}")
-    b, n, _ = v.re.shape
-    if n > MAX_N:
-        raise ValueError(f"the kernel takes n <= {MAX_N}, got {n}")
-    shape = (b, n, n)
-    _build.check_inputs({"v.re": (v.re, shape), "v.im": (v.im, shape),
-                         "g.re": (g.re, shape), "g.im": (g.im, shape)},
-                        v.re.device)
+    """Raise unless the kernel takes these pairs, saying why: one pass of
+    cheap tests (devices by index, dtypes by identity), the message built
+    only for the first that fails."""
+    shape = v.re.shape
+    if len(shape) != 3 or shape[1] != shape[2]:
+        raise ValueError(f"need (B, n, n) pairs, got {tuple(shape)}")
+    if shape[2] > MAX_N:
+        raise ValueError(f"the kernel takes n <= {MAX_N}, got {shape[2]}")
+    dev = v.re.get_device()
+    for name, t in (("v.re", v.re), ("v.im", v.im), ("g.re", g.re),
+                    ("g.im", g.im)):
+        if t.dtype is not torch.float32 or t.get_device() != dev:
+            raise ValueError(f"{name}: need float32 on {v.re.device}, got "
+                             f"{t.dtype} on {t.device}")
+        if t.shape != shape:
+            raise ValueError(f"{name}: need shape {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def pair_chain_mm(v: Pair, g: Pair, steps: int = CHAIN) -> Pair:

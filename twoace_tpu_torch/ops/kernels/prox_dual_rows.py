@@ -64,44 +64,28 @@ def plan(rows: int, r: int, per_entry: bool = False) -> dict:
                 threads=32 * per_block, blocks=-(-warps // per_block))
 
 
-def _fits(ax, b, m_dual, mu) -> bool:
-    """Every check of :func:`_check` at once, without its messages, for a
-    CUDA ``ax`` (devices compared by their index, dtypes by identity)."""
-    rdt = _REAL.get(ax.dtype)
-    dev = ax.get_device()
-    shape = ax.shape
-    return (rdt is not None and len(shape) >= 2
-            and isinstance(m_dual, torch.Tensor)
-            and isinstance(b, torch.Tensor) and isinstance(mu, torch.Tensor)
-            and m_dual.dtype is ax.dtype and b.dtype is rdt
-            and mu.dtype is rdt and m_dual.is_cuda and b.is_cuda
-            and mu.is_cuda and m_dual.get_device() == dev
-            and b.get_device() == dev and mu.get_device() == dev
-            and m_dual.shape == shape and b.shape == shape[:-1]
-            and mu.dim() == 0 and ax.is_contiguous()
-            and m_dual.is_contiguous() and b.is_contiguous())
-
-
 def _check(ax, b, m_dual, mu) -> None:
-    """Raise unless the kernel takes these operands, saying why."""
-    if _fits(ax, b, m_dual, mu):
-        return
-    if ax.dtype not in _REAL:
+    """Raise unless the kernel takes these operands, saying why: one pass
+    of cheap tests (devices by index, dtypes by identity), the message
+    built only for the first that fails."""
+    rdt = _REAL.get(ax.dtype)
+    if rdt is None:
         raise ValueError(f"ax: need complex64 or complex128, got {ax.dtype}")
-    rdt = _REAL[ax.dtype]
-    if ax.dim() < 2:
-        raise ValueError(f"ax: need shape (..., m, r), got {tuple(ax.shape)}")
-    expect = {"m_dual": (m_dual, ax.dtype, ax.shape),
-              "b": (b, rdt, ax.shape[:-1]), "mu": (mu, rdt, ())}
-    for name, (t, dtype, shape) in expect.items():
+    shape = ax.shape
+    if len(shape) < 2:
+        raise ValueError(f"ax: need shape (..., m, r), got {tuple(shape)}")
+    dev = ax.get_device()
+    for name, t, dtype, want in (("m_dual", m_dual, ax.dtype, shape),
+                                 ("b", b, rdt, shape[:-1]),
+                                 ("mu", mu, rdt, ())):
         if not isinstance(t, torch.Tensor):
             raise ValueError(f"{name}: need a tensor on {ax.device}, got "
                              f"{type(t).__name__}")
-        if t.device != ax.device or t.dtype != dtype:
+        if t.dtype is not dtype or t.get_device() != dev:
             raise ValueError(f"{name}: need {dtype} on {ax.device}, got "
                              f"{t.dtype} on {t.device}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name}: need shape {tuple(shape)}, got "
+        if t.shape != want:
+            raise ValueError(f"{name}: need shape {tuple(want)}, got "
                              f"{tuple(t.shape)}")
     for name, t in (("ax", ax), ("m_dual", m_dual), ("b", b)):
         if not t.is_contiguous():
