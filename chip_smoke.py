@@ -40,7 +40,21 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      PLGAMP and perfect/noisy-phase CS, each curve beside VSM_r05's (it
      fails if one is more than 3 dB off at M >= 529, or if A2 does not
      beat PLOMP at M = 784 and 1024); one complex-family A2 cell (K5),
-     one ``sweep_snr`` point beside VSSNR_r05.json, one profiled cell.
+     one ``sweep_snr`` point beside VSSNR_r05.json, one profiled cell;
+  8. the paths of the VS_SR campaign, the trace and windowed simulations,
+     the lifted testbed entries and the rest of the baselines:
+     ``measurements_needed_vs_range`` at VSSR_r05.json's configuration
+     (12x12, all seven ranges with the reference's (M, G) tables, A2 on
+     the pair path, K3), each method's MAEE by range and budgets beside
+     the artifact's (it fails if an MAEE is not finite, if the 70/80
+     degree ranges do not beat the 20/30 degree ones, or if a method's
+     grand-mean MAEE is more than VSSR_TOL_DEG from the artifact's);
+     ``sweep_measurements_trace`` on five 16x16 3-path channel matrices
+     (K3); ``infer_channel_windows`` on phase 6's probe rows (K5); the
+     PhaseLift campaign point at M 1024 and ``recover_directional``; one
+     VS_SR cell with CPRL, PRGAMP and SparsePL and one call of each other
+     new baseline and metric (the digital beamforming gain held to the
+     CPU's);
 
 Between phases 2 and 3 the chain benchmark (``chain``), K6's own path,
 runs ``scripts/torch_bench_pallas_mm.py``'s body.
@@ -77,6 +91,7 @@ The last three lines are a JSON summary of the kernels, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -226,10 +241,11 @@ VSSNR_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "VSSNR_r05.json")
 VSM_SEED = 1
 VSM_AREA = 95.0
-#: trials per point: VSM_r05 ran 10; cut to 5 (292 s on an H100, the
-#: two-stage FISTA's 4000 eigh a recovery; PERF.md sections 4 and 5) for
-#: the script's time limit
-VSM_TRIALS = 5
+#: trials per point: VSM_r05 ran 10; cut to 5, then to 3 when phase 8
+#: came (5 trials took 290-380 s on an H100, 85% of it the two-stage
+#: FISTA's 4000 eigh a recovery; PERF.md sections 4 and 5), for the
+#: script's time limit
+VSM_TRIALS = 3
 #: the checks at M >= VSM_CHECK_FROM: every curve within VSM_TOL_DB of
 #: VSM_r05's, and A2 below PLOMP at VSM_A2_WINS
 VSM_CHECK_FROM = 529
@@ -240,6 +256,42 @@ VSM_A2_WINS = (784, 1024)
 #: 10, VSM_TRIALS trials
 VSM_SIDE_TRIALS = 2
 VSSNR_M, VSSNR_SNR = 529, 10.0
+
+#: phase 8: the VS_SR campaign of VSSR_r05.json
+#: (scripts/run_vssr_r05.py:34-50): 12x12, 1 path, Rician K 5, SNR 0 with
+#: noise, Directional_Beam_Angular, A2 on the pair path (K3), PLOMP,
+#: PLGAMP and perfect/noisy-phase CS, maxiter 500, 3 restarts, seed 1, the
+#: reference's per-range (M, G) tables, MAEE targets (0.6, 0.8, 1.0) deg
+VSSR_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "VSSR_r05.json")
+VSSR_SEED = 1
+VSSR_RANGES = (20.0, 30.0, 40.0, 50.0, 60.0, 70.0, 80.0)
+VSSR_NT = 12
+#: trials per point: VSSR_r05 ran 10; cut to 1 for the script's time
+#: limit (2 trials took 270 s on an H100, 87% of it the two-stage FISTA's
+#: 4000 eigh a recovery; PERF.md section 4)
+VSSR_TRIALS = 1
+#: each method's grand-mean MAEE over the 34 points within VSSR_TOL_DEG of
+#: VSSR_r05's: 3 degrees at 10 trials, scaled by sqrt(10 / trials)
+VSSR_TOL_DEG = 3.0 * np.sqrt(10.0 / VSSR_TRIALS)
+#: the ranges whose mean MAEE must lie below the narrow ranges' (the
+#: artifact: about 7 against 24 degrees)
+VSSR_WIDE, VSSR_NARROW = (70.0, 80.0), (20.0, 30.0)
+#: the trace sweep: generate_channel matrices standing in for ray-traced
+#: traces (none is in the repository)
+TRACE_COUNT, TRACE_SEED, TRACE_M = 5, 8, (529, 1024)
+#: windowed inference on phase 6's probe rows (JAX's default of 30
+#: windows needs 6000 rows)
+WINDOW, WINDOWS = 200, 5
+#: recover_directional's points of probe_budget_grid(16, 16): from 121
+#: up, cut to M 1024 alone for the script's time limit (the six points
+#: took 44 s on an H100; PERF.md section 4)
+DIRECTIONAL_FROM = 1024
+#: the baselines' cell: one VS_SR point (range 20, G 25, Mt = Mr = 5)
+BASE_RANGE, BASE_G, BASE_M, BASE_TRIALS = 20.0, 25, 5, 2
+#: the digital beamforming gain, card against CPU (the analog gain
+#: follows the SVD's phase convention and is printed only)
+BF_RTOL = 1e-4
 
 #: H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 flop/s
 #: outside the tensor cores, dense TF32 flop/s on the tensor cores
@@ -1554,16 +1606,21 @@ def vsm_config(trials, impl="pair", methods=("admm_lowrank_v4", "phaselift",
         impl=impl)
 
 
-def run_sweep(label, fn, need):
-    """``fn()`` (a sweep) with the launch counts set to 0 just before it
-    and read just after; fails unless every kernel in ``need`` was
-    launched.  Returns the result, the wall seconds and the counts."""
+def timed_launches(fn):
+    """``fn()`` with the launch counts set to 0 just before it and read
+    just after; returns the result, the wall seconds and the counts."""
     reset_launch_counts()
     t0 = time.perf_counter()
-    res = fn()
+    out = fn()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = launch_counts()
+    return out, time.perf_counter() - t0, launch_counts()
+
+
+def run_sweep(label, fn, need):
+    """``fn()`` (a sweep) under :func:`timed_launches`; fails unless every
+    kernel in ``need`` was launched and every NMSE is finite and
+    positive.  Returns the result, the wall seconds and the counts."""
+    res, wall, counts = timed_launches(fn)
     require_launched(counts, need, label)
     for name, curve in res.nmse.items():
         if not np.all(np.isfinite(curve)) or not np.all(curve > 0):
@@ -1675,6 +1732,304 @@ def phase7_vsm():
     return totals
 
 
+def vssr_config(trials, nq=None, methods=("admm_lowrank_v4", "plomp",
+                                            "plgamp")):
+    """VSSR_r05's configuration (scripts/run_vssr_r05.py:34-44), A2 on the
+    pair path."""
+    return simulation.SimulationConfig(
+        array=ArrayConfig(nt=VSSR_NT, nr=VSSR_NT, nqt=nq, nqr=nq),
+        channel=ChannelConfig(n_paths=1, rician_k=5), snr_db=0.0,
+        add_noise=True, beam_method="Directional_Beam_Angular",
+        methods=MethodFlags(**dict(dict.fromkeys(["admm_lowrank_v4"], False),
+                                   **{m: True for m in methods})),
+        admm=AdmmConfig(maxiter=500, n_restarts=RESTARTS), n_trials=trials,
+        impl="pair")
+
+
+def phase8_vssr():
+    """The VS_SR campaign at VSSR_r05's configuration, each range's mean
+    MAEE and the budgets beside the artifact's."""
+    with open(VSSR_REF) as f:
+        ref = json.load(f)
+    res, wall, counts = timed_launches(
+        lambda: simulation.measurements_needed_vs_range(
+            torch.Generator().manual_seed(VSSR_SEED), VSSR_RANGES,
+            sim=vssr_config(VSSR_TRIALS)))
+    require_launched(counts, ("fused_infer_admm",), "the VS_SR campaign")
+    if sorted(res.maee_curves) != sorted(ref["maee_deg"]):
+        raise RuntimeError(f"methods {sorted(res.maee_curves)} vs "
+                           f"VSSR_r05's {sorted(ref['maee_deg'])}")
+    if res.m_grids != ref["m_grids"] or res.g_grids != ref["g_grids"]:
+        raise RuntimeError("the (M, G) tables differ from VSSR_r05's")
+    failures = []
+    for name, curves in res.maee_curves.items():
+        want = ref["maee_deg"][name]
+        pts = np.concatenate(curves)
+        if not np.all(np.isfinite(pts)):
+            failures.append(f"{name}: non-finite MAEE {pts}")
+        by_range = [round(float(np.mean(c)), 2) for c in curves]
+        ref_range = [round(float(np.mean(c)), 2) for c in want]
+        secs = sum(float(np.sum(v)) for v in res.seconds.get(
+            {"admm_lowrank_v4": "admm_lowrank_v4", "plomp": "plomp+plgamp",
+             "plgamp": "plomp+plgamp"}.get(name, "perfect+noisy CS"), []))
+        print(f"[8 vssr] {name}: m_needed "
+              f"{res.m_needed[name].astype(int).tolist()} | VSSR_r05 "
+              f"{ref['m_needed'][name]} | mean MAEE deg by range {by_range} "
+              f"| VSSR_r05 {ref_range} | its group's seconds {secs:.1f}",
+              flush=True)
+        sel = [VSSR_RANGES.index(r) for r in VSSR_WIDE]
+        wide = np.mean(np.concatenate([curves[i] for i in sel]))
+        sel = [VSSR_RANGES.index(r) for r in VSSR_NARROW]
+        narrow = np.mean(np.concatenate([curves[i] for i in sel]))
+        if not wide < narrow:
+            failures.append(f"{name}: mean MAEE {wide:.2f} deg at "
+                            f"{VSSR_WIDE} is not below {narrow:.2f} at "
+                            f"{VSSR_NARROW}")
+        grand = float(np.mean(pts))
+        ref_grand = float(np.mean(np.concatenate(want)))
+        print(f"[8 vssr] {name}: grand-mean MAEE {grand:.2f} deg over "
+              f"{len(pts)} points | VSSR_r05 {ref_grand:.2f} | tolerance "
+              f"{VSSR_TOL_DEG:.2f} at {VSSR_TRIALS} trials | "
+              f"{VSSR_WIDE} {wide:.2f} vs {VSSR_NARROW} {narrow:.2f}",
+              flush=True)
+        if abs(grand - ref_grand) > VSSR_TOL_DEG:
+            failures.append(f"{name}: grand-mean MAEE {grand:.2f} deg vs "
+                            f"VSSR_r05 {ref_grand:.2f}")
+    groups = " | ".join(f"{k} {sum(float(np.sum(v)) for v in vs):.1f} s"
+                        for k, vs in res.seconds.items())
+    print(f"[8 vssr] measurements_needed_vs_range {VSSR_NT}x{VSSR_NT}, "
+          f"{VSSR_TRIALS} trials, {sum(map(len, res.m_grids))} points: "
+          f"{wall:.1f} s | {groups} | "
+          f"launches {counts}", flush=True)
+    if failures:
+        raise RuntimeError("VS_SR checks failed: " + "; ".join(failures))
+    return counts
+
+
+def phase8_trace():
+    """sweep_measurements_trace on TRACE_COUNT 16x16 3-path
+    generate_channel matrices (stand-ins for ray-traced traces)."""
+    ch = generate_channel(torch.Generator().manual_seed(TRACE_SEED),
+                          ArrayConfig(nt=NT, nr=NR),
+                          ChannelConfig(n_paths=3), batch=TRACE_COUNT,
+                          device="cuda")
+    sim = dataclasses.replace(
+        vsm_config(TRACE_COUNT, methods=("admm_lowrank_v4", "plomp")),
+        snr_db=20.0)
+    res, wall, counts = run_sweep(
+        "the trace sweep", lambda: simulation.sweep_measurements_trace(
+            torch.Generator().manual_seed(TRACE_SEED), ch.h_matrix,
+            list(TRACE_M), sim), ("fused_infer_admm",))
+    for i, m in enumerate(TRACE_M):
+        print(f"[8 trace] M {m}: NMSE dB " + " | ".join(
+            f"{k} {10 * np.log10(v[i]):.2f}" for k, v in res.nmse.items())
+            + " | seconds " + " | ".join(
+                f"{k} {v[i]:.2f}" for k, v in res.seconds.items()),
+            flush=True)
+    print(f"[8 trace] sweep_measurements_trace {NT}x{NR}, {TRACE_COUNT} "
+          f"traces (magnitude-normalized), Random_Phase_State, SNR 20: "
+          f"{wall:.1f} s | launches {counts}", flush=True)
+    return counts
+
+
+def phase8_windows():
+    """infer_channel_windows on phase 6's probe rows and amplitudes."""
+    cb, x_true, rss, _ = campaign_workload()
+    amps = dbm_to_amplitude(torch.as_tensor(rss, device=cb.device),
+                            recovery.CampaignConfig().rss_fct)
+    ests, wall, counts = timed_launches(
+        lambda: simulation.infer_channel_windows(
+            torch.Generator().manual_seed(0), cb, amps,
+            ArrayConfig(nt=NT, nr=NR), window=WINDOW, n_windows=WINDOWS))
+    require_launched(counts, ("fused_prox_dual",), "the windowed inference")
+    if ests.shape != (WINDOWS, NR, NT) or not np.isfinite(ests).all():
+        raise RuntimeError(f"infer_channel_windows: shape {ests.shape} or "
+                           "a non-finite estimate")
+    x_np = x_true.cpu().numpy()
+    dbs = [round(proj_nmse_db(e.T.reshape(-1), x_np), 2) for e in ests]
+    print(f"[8 windows] infer_channel_windows {NT}x{NR}, {WINDOWS} windows "
+          f"of {WINDOW} of phase 6's probe rows: {1e3 * wall / WINDOWS:.1f}"
+          f" ms per window | NMSE dB against phase 6's channel {dbs} | "
+          f"launches {counts}", flush=True)
+    return counts
+
+
+def phase8_lifted():
+    """The testbed campaign's lifted entries on phase 6's workload:
+    recover_phaselift's flags at M 1024, recover_directional (2.9 mm, 180
+    degrees) over the probe-budget grid from DIRECTIONAL_FROM."""
+    cb, x_true, rss, _ = campaign_workload()
+    x_np = x_true.cpu().numpy()
+    cc = recovery.CampaignConfig(array=ArrayConfig(nt=NT, nr=NR))
+    out, wall, counts = timed_launches(
+        lambda: recovery.recover_campaign(
+            cb, rss, MethodFlags(admm_lowrank_v4=False, phaselift=True), cc,
+            m_grid=(M,)))
+    est = campaign_estimate(out, 0)
+    if not np.isfinite(est).all() or not np.abs(est).max() > 0:
+        raise RuntimeError("recover_phaselift: a zero or non-finite "
+                           "estimate")
+    print(f"[8 lifted] recover_phaselift's flags at M {M} (n {N}, 4000 "
+          f"FISTA trips, each a {N}x{N} eigh): {wall:.2f} s | NMSE "
+          f"{proj_nmse_db(est, x_np):.2f} dB", flush=True)
+    grid = tuple(m for m in probe_budget_grid(NT, NR)
+                 if m >= DIRECTIONAL_FROM)
+    cc = recovery.CampaignConfig(array=ArrayConfig(nt=NT, nr=NR,
+                                                   spacing=2.9e-3),
+                                 searching_area_deg=180.0)
+    totals = dict(counts)
+    for m in grid:
+        out, wall, counts = timed_launches(
+            lambda: recovery.recover_campaign(
+                cb, rss, MethodFlags(admm_lowrank_v4=False, plomp=True,
+                                     plgamp=True), cc, m_grid=(m,)))
+        for k, v in counts.items():
+            totals[k] += v
+        dbs = {}
+        for j, name in enumerate(out.methods):
+            e = out.h_amp[0, j] * np.exp(1j * out.h_angle[0, j])
+            if not np.isfinite(e).all():
+                raise RuntimeError(f"recover_directional M {m}: {name} "
+                                   "is not finite")
+            dbs[name] = round(proj_nmse_db(e, x_np), 2)
+        print(f"[8 lifted] recover_directional M {m}: {wall:.2f} s | NMSE "
+              f"dB {dbs}", flush=True)
+    return totals
+
+
+def phase8_baselines():
+    """One VS_SR cell with CPRL, PRGAMP and SparsePL; then one direct call
+    each of the other new baselines on that cell's data."""
+    from twoace_tpu_torch.models.measurement import generate_measurement
+    from twoace_tpu_torch.models.sparse import sparse_formulation
+    from twoace_tpu_torch.ops import beamsweep, cpr_baselines, gamp
+    from twoace_tpu_torch.ops.phaselift import phaselift_bm_pair
+    from twoace_tpu_torch.sensing.sensing_matrix import (
+        generate_sensing_matrix)
+    from twoace_tpu_torch.utils import metrics
+
+    gen = torch.Generator().manual_seed(VSSR_SEED)
+    sim = vssr_config(BASE_TRIALS, BASE_G, ("cprl", "prgamp", "sparse_pl"))
+    res, wall, counts = run_sweep(
+        "the baselines' cell", lambda: simulation.sweep_measurements(
+            gen, [BASE_M], sim, BASE_RANGE), ())
+    print(f"[8 baselines] sweep_measurements {VSSR_NT}x{VSSR_NT}, range "
+          f"{BASE_RANGE:.0f}, G {BASE_G}, Mt = Mr = {BASE_M}, {BASE_TRIALS} "
+          f"trials: {wall:.2f} s | NMSE dB " + " | ".join(
+              f"{k} {10 * np.log10(v[0]):.2f}" for k, v in res.nmse.items())
+          + " | MAEE deg " + " | ".join(
+              f"{k} {v[0]:.2f}" for k, v in res.aoda_err.items())
+          + " | seconds " + " | ".join(
+              f"{k} {v[0]:.2f}" for k, v in res.seconds.items()), flush=True)
+
+    # that cell's data, drawn as the sweep drew it (``_one_cell``)
+    g0 = fold_in(gen, 0)
+    cfg = sim.array
+    ch = generate_channel(fold_in(g0, 0), cfg, sim.channel,
+                          batch=BASE_TRIALS, device="cuda")
+    rep = sparse_formulation(cfg, ch, BASE_RANGE)
+    half = BASE_RANGE / 2
+    sensing = generate_sensing_matrix(fold_in(g0, 1), sim.beam_method,
+                                      BASE_M, BASE_M, cfg, rep.ad,
+                                      (-half, half), (-half, half),
+                                      batch=BASE_TRIALS)
+    meas = generate_measurement(fold_in(g0, 2), sensing.fw, ch.vec_h,
+                                sim.snr_db, True, w=sensing.w, mt=BASE_M)
+    a, b2 = sensing.measurement_mat[0], meas.norm_square[0]
+    y, vec_h = meas.perfect_phase[0], ch.vec_h[0]
+    n_p = a.shape[1]
+
+    def db_of(v):
+        v = v @ rep.ad.T.to(v.dtype) if v.shape[-1] == n_p else v
+        return float(10 * torch.log10(nmse_h_projection(
+            v, vec_h.to(v.dtype))))
+
+    def run(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    rows = []
+    z_pl, sec = run(lambda: dispatch.recover_sparse(
+        None, b2, a, MethodFlags(admm_lowrank_v4=False, phaselift=True),
+        1)["phaselift"])
+    rows.append(("recover_sparse(phaselift=True)", sec, db_of(z_pl)))
+    z, sec = run(lambda: gamp.vamp_cs(y, a, sim.snr_db, 1 / n_p))
+    rows.append(("vamp_cs", sec, db_of(z)))
+    z, sec = run(lambda: cpr_baselines.lifted_omp(b2, a, 1))
+    rows.append(("lifted_omp", sec, db_of(z)))
+    z, sec = run(lambda: cpr_baselines.unconventional_cs(y, a.T))
+    rows.append(("unconventional_cs", sec, db_of(z)))
+    fw = sensing.fw[0]
+    bm, sec = run(lambda: phaselift_bm_pair(
+        None, Pair(fw.real.contiguous(), fw.imag.contiguous()), b2))
+    x_bm = torch.complex(bm.x_re, bm.x_im)
+    rows.append(("phaselift_bm_pair", sec, db_of(x_bm)))
+    for label, sec, db in rows:
+        if not np.isfinite(db):
+            raise RuntimeError(f"{label}: NMSE {db}")
+    print("[8 baselines] direct calls on the cell's first trial: " + " | ".join(
+        f"{label} {sec:.3f} s, NMSE {db:.2f} dB" for label, sec, db in rows),
+        flush=True)
+
+    aod, aoa = metrics.angles_from_sparse(z_pl[None], cfg, rep.tx_window,
+                                          rep.rx_window, 1)
+    arm, sec = run(lambda: metrics.array_response_mse(
+        aod, aoa, ch.aod_deg[:1].to(aod.dtype), ch.aoa_deg[:1].to(aoa.dtype),
+        cfg))
+    h_true = ch.h_matrix[0]
+    gains, sec_bf = run(lambda: metrics.beamforming_gain(x_bm, h_true, cfg))
+    gains_cpu = metrics.beamforming_gain(x_bm.cpu(), h_true.cpu(), cfg)
+    ideal = metrics.beamforming_gain(vec_h, h_true, cfg)[1]
+    dig, dig_cpu = float(gains[1]), float(gains_cpu[1])
+    print(f"[8 baselines] array_response_mse of the z-domain PhaseLift's "
+          f"angles: {float(arm[0]):.4f} ({sec:.3f} s) | beamforming_gain "
+          f"of phaselift_bm_pair's estimate ({sec_bf:.3f} s): digital "
+          f"{dig:.4f} (CPU {dig_cpu:.4f}, the true channel's "
+          f"{float(ideal):.4f}), analog {float(gains[0]):.4f} (CPU "
+          f"{float(gains_cpu[0]):.4f}; follows the SVD's phase "
+          f"convention)", flush=True)
+    if not np.isfinite(float(arm[0])) or \
+            abs(dig - dig_cpu) > BF_RTOL * abs(dig_cpu):
+        raise RuntimeError(f"array_response_mse {float(arm[0])} or the "
+                           f"digital gain {dig} vs CPU {dig_cpu}")
+
+    vh3 = generate_channel(torch.Generator().manual_seed(TRACE_SEED),
+                           ArrayConfig(nt=NT, nr=NR), ChannelConfig(n_paths=3),
+                           device="cuda")
+    sw, sec = run(lambda: beamsweep.sweep_channel(
+        torch.Generator().manual_seed(0), vh3.vec_h[0],
+        ArrayConfig(nt=NT, nr=NR), NT, NR, (-47.5, 47.5), (-47.5, 47.5),
+        snr_db=20.0))
+    aod_err = float(torch.min(torch.abs(vh3.aod_deg[0] - sw.aod_deg)))
+    aoa_err = float(torch.min(torch.abs(vh3.aoa_deg[0] - sw.aoa_deg)))
+    print(f"[8 baselines] sweep_channel {NT}x{NR}, 3 paths, {NT}x{NR} "
+          f"beams, SNR 20: {sec:.3f} s | AoD {float(sw.aod_deg):.2f} / AoA "
+          f"{float(sw.aoa_deg):.2f} deg, nearest path {aod_err:.2f} / "
+          f"{aoa_err:.2f} deg off", flush=True)
+    if not (np.isfinite(aod_err) and np.isfinite(aoa_err)):
+        raise RuntimeError("sweep_channel: non-finite angles")
+    return counts
+
+
+def phase8_new_paths():
+    """Phase 8: the paths of the VS_SR campaign, the trace and windowed
+    simulations, the lifted testbed entries and the baselines."""
+    totals = {}
+    for part in (phase8_vssr, phase8_trace, phase8_windows, phase8_lifted,
+                 phase8_baselines):
+        t0 = time.perf_counter()
+        counts = part()
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        print(f"[8 time] {part.__name__} {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    print(f"[8 launches] K3 {totals['fused_infer_admm']}, K5 "
+          f"{totals['fused_prox_dual']} | {totals}", flush=True)
+    return totals
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -1703,6 +2058,8 @@ def main():
     done(6)
     add(phase7_vsm())
     done(7)
+    add(phase8_new_paths())
+    done(8)
     sources = {"fused_prox_dual_t": ("twoace_tpu_torch/csrc/prox_dual.cu",
                                      "twoace_tpu/ops/pallas/kernels.py:121"),
                "fused_zprox_t": ("twoace_tpu_torch/csrc/zprox.cu",

@@ -1,7 +1,8 @@
 """The port's testbed recovery campaign (``twoace_tpu_torch.pipeline.recovery``)
 and what it is built from (``utils.units``, ``sensing.provider``,
-``sensing.sensing_matrix.pick_beams``, ``ops.dispatch.recover_channel``,
-the ``interop`` converters) against the JAX package's, on the CPU.
+``sensing.sensing_matrix.pick_beams``, ``ops.dispatch.recover_channel``
+with its lifted entries, the ``interop`` converters) against the JAX
+package's, on the CPU.
 
 The campaign runs at 4x4 through a 64-row 2-bit codebook and a noiseless
 two-path channel, both packages fed the same numpy codebook and RSS trace.
@@ -9,11 +10,14 @@ Their random streams differ (torch generators, not JAX keys), so they are
 compared on each grid point's NMSE against the channel and on quality.
 JAX compiles its A2 solver once per shape and configuration (about 12 s
 with one restart on the CPU), so the campaign uses one restart and one
-grid shape, m = 48, which the warm sweep's two points share.
+grid shape, m = 48, which the warm sweep's two points share.  The lifted
+entries (PhaseLift, PLOMP, PLGAMP) draw nothing: given JAX's probe
+subsets they agree with JAX to rounding at every grid point.
 """
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,12 +25,15 @@ import torch
 
 from torch_parity import nmse_db, steer
 from twoace_tpu import config as jcfg
+from twoace_tpu.models import steering as jsteer
 from twoace_tpu.ops import admm as jadmm
+from twoace_tpu.ops import dispatch as jdisp
 from twoace_tpu.pipeline import recovery as jrec
 from twoace_tpu.sensing import provider as jprov
 from twoace_tpu.utils import units as junits
 from twoace_tpu_torch import interop
 from twoace_tpu_torch import config as tcfg
+from twoace_tpu_torch.models import steering as tsteer
 from twoace_tpu_torch.ops import admm as tadmm
 from twoace_tpu_torch.ops import dispatch as tdisp
 from twoace_tpu_torch.pipeline import recovery as trec
@@ -135,12 +142,21 @@ def test_pick_beams():
 
 
 def test_lifted_methods_raise_and_pass_through():
+    """The lifted methods run in recover_channel (PLOMP and PLGAMP raise
+    ValueError without the sparse dictionary, as in JAX); the
+    beamforming-time dispatcher passes earlier estimates through."""
     cb, x, _ = _testbed()
     b = torch.tensor(np.abs(cb @ x))
     cfg = tcfg.ArrayConfig(nt=NT, nr=NR)
-    for flag in ("phaselift", "plomp", "plgamp"):
+    pl = tcfg.PhaseLiftConfig(max_iters=20)
+    out = tdisp.recover_channel(
+        None, b, torch.tensor(cb),
+        tcfg.MethodFlags(admm_lowrank_v4=False, phaselift=True), cfg, s=2,
+        pl_cfg=pl)
+    assert set(out) == {"phaselift"} and out["phaselift"].shape == (N,)
+    for flag in ("plomp", "plgamp"):
         flags = tcfg.MethodFlags(admm_lowrank_v4=False, **{flag: True})
-        with pytest.raises(NotImplementedError, match="baselines"):
+        with pytest.raises(ValueError, match="dictionary AD"):
             tdisp.recover_channel(None, b, torch.tensor(cb), flags, cfg, s=2)
     ok = tdisp.recover_channel_bf(
         None, b, torch.tensor(cb),
@@ -151,6 +167,93 @@ def test_lifted_methods_raise_and_pass_through():
         tdisp.recover_channel_bf(
             None, b, torch.tensor(cb),
             tcfg.MethodFlags(admm_lowrank_v4=False, plomp=True), cfg, {})
+
+
+def _loud_testbed(total):
+    """_testbed's codebook and channel 40 dB louder: at -77 dBm the
+    lifted methods' intensities ((b / 2e5)^2 * 1e10, about 5e-3) lie
+    below PhaseLift's trace weight and every estimate is 0."""
+    cb, x, _ = _testbed(total=total)
+    x = 100.0 * x
+    return cb, x, 10 * np.log10(np.abs(cb @ x) ** 2)
+
+
+def test_recover_channel_lifted_entries_match_jax():
+    """PhaseLift, PLOMP and PLGAMP through the testbed's scaling chain on
+    the same amplitudes, probe rows and dictionary (95 degrees), at 60
+    FISTA trips: the estimates agree to 1e-8 of the largest entry after
+    phase alignment (the lifted eigenvector's phase is free; PLOMP and
+    PLGAMP share theirs)."""
+    cb, _, rss = _loud_testbed(48)
+    b = np.asarray(junits.dbm_to_amplitude(jnp.asarray(rss), 1e5 / 3.0))
+    names = ("phaselift", "plomp", "plgamp")
+    kw_j = dict(pl_cfg=jcfg.PhaseLiftConfig(max_iters=60),
+                ts_cfg=jcfg.TwoStageConfig(
+                    phaselift=jcfg.PhaseLiftConfig(max_iters=60)))
+    kw_t = dict(pl_cfg=tcfg.PhaseLiftConfig(max_iters=60),
+                ts_cfg=tcfg.TwoStageConfig(
+                    phaselift=tcfg.PhaseLiftConfig(max_iters=60)))
+    cj, ct = jcfg.ArrayConfig(nt=NT, nr=NR), tcfg.ArrayConfig(nt=NT, nr=NR)
+    ad_j = jsteer.angle_dictionary(cj, 95.0, dtype=jnp.complex128)
+    ad_t = tsteer.angle_dictionary(ct, 95.0, dtype=torch.complex128,
+                                   device="cpu")
+    want = jdisp.recover_channel(
+        None, jnp.asarray(b), jnp.asarray(cb),
+        jcfg.MethodFlags(admm_lowrank_v4=False, **{k: True for k in names}),
+        cj, s=2, ad=ad_j, **kw_j)
+    got = tdisp.recover_channel(
+        None, torch.tensor(b), torch.tensor(cb),
+        tcfg.MethodFlags(admm_lowrank_v4=False, **{k: True for k in names}),
+        ct, s=2, ad=ad_t, **kw_t)
+    assert sorted(got) == sorted(want) == sorted(names)
+    for name in names:
+        g, w = got[name].numpy(), np.asarray(want[name])
+        g = g * np.exp(1j * np.angle(np.vdot(g, w)))
+        assert np.abs(w).max() > 0
+        assert np.abs(g - w).max() <= 1e-8 * np.abs(w).max(), name
+
+
+def _jax_probe_subsets(monkeypatch, jcc, total):
+    """Hand the port's campaign JAX's probe subset at every grid point."""
+    key = jax.random.PRNGKey(jcfg.SEED_TABLE[0])
+    subsets = [torch.tensor(np.asarray(jrec._pick_m_indices(
+        jax.random.fold_in(key, i), min(m, total), total, jcc)))
+        for i, m in enumerate(tcfg.probe_budget_grid(NT, NR))]
+    monkeypatch.setattr(trec, "_pick_m_indices",
+                        lambda *args: subsets.pop(0))
+    return subsets
+
+
+@pytest.mark.parametrize("entry", ["recover_phaselift",
+                                   "recover_directional"])
+def test_lifted_campaign_entries_match_jax(monkeypatch, entry):
+    """recover_phaselift (95 degrees) and recover_directional (2.9 mm,
+    180 degrees) over the 4 x 4 probe-budget grid of a 9-row codebook
+    (budgets capped at 9 rows), the port handed JAX's probe subsets: the
+    default 4000 FISTA trips a point, every estimate within 1e-8 of JAX's
+    after phase alignment (1e-10 measured)."""
+    cb, _, rss = _loud_testbed(9)
+    jcc = jrec.CampaignConfig(array=jcfg.ArrayConfig(nt=NT, nr=NR),
+                              n_paths=2)
+    if entry == "recover_directional":
+        jcc = dataclasses.replace(
+            jcc, array=jcfg.ArrayConfig(nt=NT, nr=NR, spacing=2.9e-3),
+            searching_area_deg=180.0)
+    tcc = interop.campaign_config_from_dict(dataclasses.asdict(jcc))
+    subsets = _jax_probe_subsets(monkeypatch, jcc, 9)
+    want = getattr(jrec, entry)(jnp.asarray(cb), jnp.asarray(rss), 1, jcc)
+    got = getattr(trec, entry)(cb, rss, 1, tcc, device="cpu")
+    assert not subsets
+    assert got.methods == want.methods == (
+        ("phaselift",) if entry == "recover_phaselift"
+        else ("plomp", "plgamp"))
+    assert got.m_grid == want.m_grid == tcfg.probe_budget_grid(NT, NR)
+    for i in range(len(got.m_grid)):
+        for j in range(len(got.methods)):
+            g, w = _estimate(got, i, j), _estimate(want, i, j)
+            g = g * np.exp(1j * np.angle(np.vdot(g, w)))
+            assert np.abs(w).max() > 0
+            assert np.abs(g - w).max() <= 1e-8 * np.abs(w).max(), (i, j)
 
 
 def test_interop_carries_campaign_configs():

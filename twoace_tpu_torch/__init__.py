@@ -5,10 +5,14 @@ The package imports torch and numpy and never jax.  The JAX package
 A2 solver of ``ops.pair_solver`` (``solve_lowrank_multi_pair_batch``,
 ``solve_lowrank_multi_pair``, ``refine_lowrank_pair``); the complex-dtype
 solver family (``ops.admm``, ``ops.dispatch``) and the testbed recovery
-campaigns (``pipeline.recovery``); five hand-written CUDA kernels
-(``ops.kernels``); the steering and channel models (``models``); the
-random codebooks, beam pick and measurement providers (``sensing``); and
-the mobility tracker (``pipeline.mobility``).
+campaigns (``pipeline.recovery``); the baselines (``ops.omp``,
+``ops.gamp``, ``ops.phaselift``, ``ops.twostage``, ``ops.cpr_baselines``,
+``ops.beamsweep``); six hand-written CUDA kernels (``ops.kernels``); the
+steering, channel, sparse and measurement models (``models``); the
+random and directional codebooks, beam pick and measurement providers
+(``sensing``); the mobility tracker (``pipeline.mobility``); and the
+Monte-Carlo campaigns (``pipeline.simulation``: Vs_M, Vs_SNR, VS_SR, the
+trace sweep and windowed inference).
 """
 
 from . import interop  # noqa: F401

@@ -9,18 +9,14 @@ framework's ``ADMM_v2`` and ``Recover_Channel``.
   Recover_Channel_bf.m:1-45);
 - :func:`recover_sparse`: the simulation tree's z-domain recovery over
   the baselines (ref: Numerical_Simulation/src/my_recovery_algorithms/
-  MyCPR.m:74-190): PLOMP, PLGAMP and perfect/noisy-phase CS.
-
-The ADMM family is ported.  ``recover_channel``'s lifted methods
-(PhaseLift, PLOMP, PLGAMP with the testbed's scaling chains) and
-``recover_sparse``'s PhaseLift (FISTA), CPRL, PRGAMP and SparsePL raise
-``NotImplementedError`` until they are ported (ROADMAP.md, modules
-queue item 5).
+  MyCPR.m:74-190): PhaseLift, CPRL, PRGAMP, SparsePL, PLOMP, PLGAMP and
+  perfect/noisy-phase CS.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Dict, Optional
 
@@ -32,14 +28,20 @@ from ..utils.rng import fold_in
 from ..utils.timing import synced_seconds
 from .admm import AdmmResult, solve_lowrank_multi, solve_minl2
 from .cplx import Pair
-from .cpr_baselines import conventional_cs
+from .cpr_baselines import conventional_cs, cprl, sparse_phaselift
+from .gamp import prgamp
 from .pair_solver import solve_lowrank_multi_pair
+from .phaselift import phaselift_fista
 from .twostage import two_stage_recovery
 
 #: ``MethodFlags`` field -> ADMM_v2 version (ref: Recover_Channel.m:13-31)
 _VERSIONS = {"admm": 0, "admm_lowrank_v1": 1, "admm_lowrank_v2": 2,
              "admm_lowrank_v3": 3, "admm_lowrank_v4": 4}
 _LIFTED = ("phaselift", "plomp", "plgamp")
+#: the reference's PhaseLift measurement scaling chain
+#: (ref: Recover_Channel.m:35,41-44)
+_PL_IN_SCALE = 2e5
+_PL_LIFT_SCALE = 1e10
 
 
 def _with_ladder(cfg: AdmmConfig, ladder: str) -> AdmmConfig:
@@ -126,14 +128,6 @@ def _admm_v2_escalation(generator, a, b, nt: int, nr: int, cfg: AdmmConfig,
     return res
 
 
-def _refuse_lifted(flags: MethodFlags) -> None:
-    for name in _LIFTED:
-        if getattr(flags, name):
-            raise NotImplementedError(
-                f"{name} is a lifted baseline, not ported yet (ROADMAP.md, "
-                "modules queue item 5, the baselines)")
-
-
 def _admm_methods(generator, b, a, flags: MethodFlags, cfg: ArrayConfig,
                   admm_cfg: AdmmConfig) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
@@ -149,7 +143,9 @@ def _admm_methods(generator, b, a, flags: MethodFlags, cfg: ArrayConfig,
 
 def recover_channel(generator: Optional[torch.Generator], measurements,
                     beams, flags: MethodFlags, cfg: ArrayConfig, s: int,
-                    ad=None, admm_cfg: AdmmConfig = AdmmConfig()
+                    ad=None, admm_cfg: AdmmConfig = AdmmConfig(),
+                    pl_cfg: PhaseLiftConfig = PhaseLiftConfig(),
+                    ts_cfg: TwoStageConfig = TwoStageConfig()
                     ) -> Dict[str, torch.Tensor]:
     """Run every enabled method; returns {method name: vec_h estimate}
     (ref: Recover_Channel.m:1-47, Recover_Channel_nuclear.m).
@@ -157,14 +153,33 @@ def recover_channel(generator: Optional[torch.Generator], measurements,
     ``measurements`` are linear amplitudes
     (:func:`..utils.units.dbm_to_amplitude`).  Method ``version`` draws
     from ``fold_in(generator, version)``, the nuclear variant from
-    ``fold_in(generator, 14)``.  ``s`` and ``ad`` (the sparse dictionary)
-    serve the lifted baselines, which raise until they are ported.
+    ``fold_in(generator, 14)``.  The lifted methods take the reference's
+    scaling chain, intensities ``(b / 2e5)^2 * 1e10`` (ref:
+    Recover_Channel.m:35), and scale their estimates back: PhaseLift
+    solves on the probe rows; PLOMP and PLGAMP share one two-stage
+    recovery on ``beams @ ad`` (``ad``, the sparse dictionary, is
+    required for them; ``s`` is their sparsity) mapped back through
+    ``ad``.
     """
-    del s, ad
-    _refuse_lifted(flags)
     b = torch.as_tensor(measurements).real.reshape(-1)
-    return _admm_methods(generator, b, torch.as_tensor(beams), flags, cfg,
-                         admm_cfg)
+    a = torch.as_tensor(beams)
+    out = _admm_methods(generator, b, a, flags, cfg, admm_cfg)
+    intens = (b / _PL_IN_SCALE) ** 2 * _PL_LIFT_SCALE
+    scale = _PL_IN_SCALE / math.sqrt(_PL_LIFT_SCALE)
+    if flags.phaselift:
+        out["phaselift"] = phaselift_fista(a, intens, pl_cfg).x * scale
+    if flags.plomp or flags.plgamp:
+        if ad is None:
+            raise ValueError("PLOMP/PLGAMP need the sparse dictionary AD")
+        ad = torch.as_tensor(ad).to(dtype=a.dtype, device=a.device)
+        ts = two_stage_recovery(intens, a @ ad, s, cfg=ts_cfg,
+                                run_plomp=flags.plomp,
+                                run_plgamp=flags.plgamp)
+        if flags.plomp:
+            out["plomp"] = (ad @ ts.plomp) * scale
+        if flags.plgamp:
+            out["plgamp"] = (ad @ ts.plgamp) * scale
+    return out
 
 
 def recover_channel_bf(generator: Optional[torch.Generator], measurements,
@@ -190,10 +205,6 @@ def recover_channel_bf(generator: Optional[torch.Generator], measurements,
     return out
 
 
-#: ``recover_sparse`` methods still to port
-_SPARSE_UNPORTED = ("phaselift", "cprl", "prgamp", "sparse_pl")
-
-
 def recover_sparse(generator: Optional[torch.Generator], measurements,
                    measurement_mat, flags: MethodFlags, s: int,
                    noise_power: float = 1.0, measurements_perfect=None,
@@ -205,48 +216,59 @@ def recover_sparse(generator: Optional[torch.Generator], measurements,
     baselines (ref: MyCPR.m:74-190): {method name: (P,) z estimate}.
 
     ``measurements``: (m,) intensities |y|^2; ``measurement_mat``: (m, P)
-    = FW @ AD.  PLOMP and PLGAMP share one two-stage recovery; the
-    perfect- and noisy-phase complex measurements, when given, each get
-    a conventional CS solve.  ``flags.phaselift`` (the z-domain FISTA),
-    ``cprl``, ``prgamp`` and ``sparse_pl`` raise ``NotImplementedError``.
-    ``generator`` is unused: these baselines draw nothing.
+    = FW @ AD.  PhaseLift is the lifted FISTA on the z domain; PRGAMP
+    takes the magnitudes; PLOMP and PLGAMP share one two-stage recovery;
+    the perfect- and noisy-phase complex measurements, when given, each
+    get a conventional CS solve.  ``generator`` is unused: these
+    baselines draw nothing.
 
     ``info``, when given, receives the two-stage compression size under
-    ``"mcs"`` and, under ``"seconds"``, the host seconds of the two-stage
-    recovery (``"plomp+plgamp"``) and of the CS solves
-    (``"perfect+noisy CS"``), each read once the device has finished.
+    ``"mcs"`` and, under ``"seconds"``, the host seconds of each group
+    that ran (``"phaselift (z)"``, ``"cprl"``, ``"prgamp"``,
+    ``"sparse_pl"``, ``"plomp+plgamp"``, ``"perfect+noisy CS"``), each
+    read once the device has finished.
     """
-    del generator, pl_cfg
-    for name in _SPARSE_UNPORTED:
-        if getattr(flags, name):
-            raise NotImplementedError(
-                f"recover_sparse's {name} is not ported yet (ROADMAP.md, "
-                "modules queue item 5)")
+    del generator
     out: Dict[str, torch.Tensor] = {}
     b2 = torch.as_tensor(measurements).real.reshape(-1)
     a = torch.as_tensor(measurement_mat)
     seconds = {}
-    t0 = time.perf_counter()
+
+    def timed(group, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        if info is not None:
+            seconds[group] = synced_seconds(t0, a.device)
+        return res
+
+    if flags.phaselift:
+        out["phaselift"] = timed("phaselift (z)",
+                                 lambda: phaselift_fista(a, b2, pl_cfg).x)
+    if flags.cprl:
+        out["cprl"] = timed("cprl", lambda: cprl(b2, a))
+    if flags.prgamp:
+        out["prgamp"] = timed("prgamp", lambda: prgamp(torch.sqrt(b2), a))
+    if flags.sparse_pl:
+        out["sparse_pl"] = timed("sparse_pl", lambda: sparse_phaselift(
+            b2, a, cfg=pl_cfg))
     if flags.plomp or flags.plgamp:
-        ts = two_stage_recovery(b2, a, s, noise_power, ts_cfg,
-                                run_plomp=flags.plomp,
-                                run_plgamp=flags.plgamp)
+        ts = timed("plomp+plgamp", lambda: two_stage_recovery(
+            b2, a, s, noise_power, ts_cfg, run_plomp=flags.plomp,
+            run_plgamp=flags.plgamp))
         if flags.plomp:
             out["plomp"] = ts.plomp
         if flags.plgamp:
             out["plgamp"] = ts.plgamp
         if info is not None:
             info["mcs"] = ts.mcs
-            seconds["plomp+plgamp"] = synced_seconds(t0, a.device)
     t0 = time.perf_counter()
-    if measurements_perfect is not None:
-        out["perfect_phase_cs"] = conventional_cs(
-            measurements_perfect.reshape(-1), a, s, noise_power)
-    if measurements_noisy is not None:
-        out["noisy_phase_cs"] = conventional_cs(
-            measurements_noisy.reshape(-1), a, s, noise_power)
+    for name, y in (("perfect_phase_cs", measurements_perfect),
+                    ("noisy_phase_cs", measurements_noisy)):
+        if y is not None:
+            out[name] = conventional_cs(y.reshape(-1), a, s, noise_power)
+    if info is not None and (measurements_perfect is not None
+                             or measurements_noisy is not None):
+        seconds["perfect+noisy CS"] = synced_seconds(t0, a.device)
     if info is not None:
-        if measurements_perfect is not None or measurements_noisy is not None:
-            seconds["perfect+noisy CS"] = synced_seconds(t0, a.device)
         info["seconds"] = seconds
     return out

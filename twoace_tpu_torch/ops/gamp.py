@@ -1,15 +1,20 @@
 """Generalized Approximate Message Passing, complex (port of
-``twoace_tpu.ops.gamp``: :func:`gamp` and :func:`embgamp`).
+``twoace_tpu.ops.gamp``).
 
-Replaces the vendored GAMP suite's ``EMBGAMP``
-(main/3rd_software_component/GAMP/...): a Bernoulli-Gaussian input channel
-with EM learning of (sparsity, signal variance, noise variance), stage 2
-of PLGAMP and the conventional-CS baseline (ref:
-My_TwoStage_Recovery.m:163-181, My_Conventional_CS.m:14-30).  The
-standard sum-product recursion (Rangan 2011) with Vila-Schniter EM
-updates, a fixed trip count and damping, as the JAX package writes it;
-the loop reads nothing back to the host.  ``vamp``, ``vamp_cs`` and
-``prgamp`` are still to port.
+Replaces the vendored GAMP suite (main/3rd_software_component/GAMP/...):
+
+- ``EMBGAMP`` (:func:`gamp`, :func:`embgamp`): a Bernoulli-Gaussian input
+  channel with EM learning of (sparsity, signal variance, noise
+  variance), stage 2 of PLGAMP and the conventional-CS baseline (ref:
+  My_TwoStage_Recovery.m:163-181, My_Conventional_CS.m:14-30);
+- ``prGAMP4`` (:func:`prgamp`): GAMP with the magnitude-only output
+  channel (ref: MyPRGAMP.m:63-76);
+- VAMP (:func:`vamp`, :func:`vamp_cs`): vector AMP with the LMMSE stage
+  solved through one SVD of A.
+
+The standard recursions (Rangan 2011; Rangan-Schniter-Fletcher 2016)
+with Vila-Schniter EM updates, a fixed trip count and damping, as the JAX
+package writes them; the loops read nothing back to the host.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from .spectral_init import spectral_initialize
 
 
 class GampResult(NamedTuple):
@@ -144,3 +151,91 @@ def embgamp(y, a, snr_db: float, lam0: float, learn_lambda: bool = True,
     return gamp(a, y, lam0=lam0, psi0=psi0, iters=iters,
                 learn_lambda=learn_lambda, output="awgn",
                 adaptive_damping=True).x
+
+
+class VampResult(NamedTuple):
+    x: torch.Tensor
+    precision: torch.Tensor   #: the final denoiser-input precision gamma1
+
+
+def vamp(a, y, *, lam0: float, phi0, gamma_w, iters: int = 50,
+         damping: float = 0.8) -> VampResult:
+    """Vector AMP for ``y = A x + w`` with a Bernoulli-Gaussian prior.
+
+    Replaces the vendored suite's VAMP (ref: {main,Numerical_Simulation}/
+    3rd_software_component/GAMP/trunk/code/VAMP).  The LMMSE stage is
+    solved exactly through one SVD of A, so a trip is O(mn) products;
+    unlike GAMP, VAMP stays stable on ill-conditioned directional
+    codebooks.  The answer does not depend on the SVD's phase convention.
+    ``gamma_w``: the noise precision 1/psi; ``phi0``: the prior signal
+    variance.  ``iters`` trips with gamma damping.
+    """
+    n = a.shape[1]
+    u, s, vh = torch.linalg.svd(a, full_matrices=False)
+    k = s.shape[0]
+    rdt, dev = s.dtype, a.device
+    lam = torch.as_tensor(lam0, dtype=rdt, device=dev)
+    phi = torch.as_tensor(phi0, dtype=rdt, device=dev)
+    gw = torch.as_tensor(gamma_w, dtype=rdt, device=dev)
+    d = s * s                              # (k,) eigenvalues of A^H A
+    aty_v = s.to(a.dtype) * (u.mH @ y)     # A^H y in V coordinates
+    v = vh.mH
+
+    def lmmse(r2, g2):
+        """argmin gw ||y - A x||^2 + g2 ||x - r2||^2 through the SVD;
+        returns (x2, alpha2)."""
+        vr2 = vh @ r2
+        c = (gw * aty_v + g2.to(a.dtype) * vr2) / (gw * d + g2).to(a.dtype)
+        x2 = v @ (c - vr2) + r2
+        # divergence: k spectral components and n - k passed through
+        alpha2 = (torch.sum(g2 / (gw * d + g2)) + (n - k)) / n
+        return x2, alpha2
+
+    r1 = a.mH @ y
+    g1 = 1.0 / torch.clamp(phi, min=1e-20)
+    for _ in range(iters):
+        # the denoising stage
+        x1, tau_x, _, _, _ = _bg_denoiser(r1, 1.0 / g1, lam, phi)
+        alpha1 = torch.clamp(g1 * torch.mean(tau_x), 1e-6, 1.0 - 1e-6)
+        eta1 = g1 / alpha1
+        g2 = torch.clamp(eta1 - g1, min=1e-12)
+        r2 = (eta1.to(a.dtype) * x1 - g1.to(a.dtype) * r1) / g2.to(a.dtype)
+        # the LMMSE stage
+        x2, alpha2 = lmmse(r2, g2)
+        alpha2 = torch.clamp(alpha2, 1e-6, 1.0 - 1e-6)
+        eta2 = g2 / alpha2
+        g1_new = torch.clamp(eta2 - g2, min=1e-12)
+        r1_new = (eta2.to(a.dtype) * x2 - g2.to(a.dtype) * r2) \
+            / g1_new.to(a.dtype)
+        g1 = damping * g1_new + (1 - damping) * g1
+        r1 = damping * r1_new + (1 - damping) * r1
+    x, _, _, _, _ = _bg_denoiser(r1, 1.0 / g1, lam, phi)
+    return VampResult(x=x, precision=g1)
+
+
+def vamp_cs(y, a, snr_db: float, lam0: float, iters: int = 50):
+    """The VAMP conventional-CS entry, with :func:`embgamp`'s interface
+    (the role of My_Conventional_CS.m:14-24, with the vendored suite's
+    VAMP in place of EMBGAMP)."""
+    m, n = a.shape
+    y_pow = torch.mean(y.abs() ** 2)
+    psi0 = y_pow / (1.0 + 10.0 ** (snr_db / 10.0))
+    col_pow = torch.mean(torch.sum(a.abs() ** 2, dim=0))
+    phi0 = torch.clamp((y_pow - psi0) * m
+                       / torch.clamp(col_pow * lam0 * n, min=1e-20), min=1e-12)
+    return vamp(a, y, lam0=lam0, phi0=phi0, gamma_w=1.0 / psi0,
+                iters=iters).x
+
+
+def prgamp(y_mag, a, lam0: float = 0.1, iters: int = 300):
+    """Phase-retrieval GAMP, the magnitude-only output channel (ref:
+    MyPRGAMP.m:71 ``prGAMP4(sqrt(y), A, opt)``: the input is the
+    magnitude).  A spectral initialization, scaled so the predicted
+    magnitudes carry the measured energy, breaks the x = 0 fixed point of
+    the magnitude channel."""
+    x0 = spectral_initialize(a, y_mag, 1)[:, 0]
+    ax = (a @ x0).abs()
+    x0 = x0 * (torch.linalg.vector_norm(y_mag) / torch.clamp(
+        torch.linalg.vector_norm(ax), min=1e-20)).to(a.dtype)
+    return gamp(a, y_mag, lam0=lam0, psi0=1e-3 * torch.mean(y_mag ** 2),
+                iters=iters, learn_lambda=True, output="magnitude", x0=x0).x

@@ -1,6 +1,5 @@
 """PhaseLift: trace-regularized PSD least squares for phase retrieval
-(port of ``twoace_tpu.ops.phaselift``: :func:`phaselift_fista` and
-:func:`phaselift_bm`).
+(port of ``twoace_tpu.ops.phaselift``).
 
 Replaces the TFOCS ``solver_TraceLS`` path of the reference
 (ref: main/src/my_recovery_algorithms/MyPhaseLift.m:69-108):
@@ -14,10 +13,13 @@ with the lifted operator ``A(X)_i = a_i^T X conj(a_i)``.
   so every one of its ``max_iters`` trips runs a ``torch.linalg.eigh``
   (which waits for the card).  No early stop, as in the JAX package.
 - :func:`phaselift_bm`: Burer-Monteiro factored X = V V^H, batched over
-  leading axes (the JAX package vmaps it over instances).
+  leading axes (the JAX package vmaps it over instances);
+- :func:`phaselift_bm_pair`: the same solver with (re, im) pair input
+  and output.  The JAX package wrote it for runtimes without complex
+  dtypes (orthogonal iteration and a Jacobi ``eigh`` on real
+  embeddings); here it runs :func:`phaselift_bm` on the complex form.
 
-``phaselift_bm_pair`` (the pair form for complex-free runtimes) is still
-to port.  The rank-1 extraction follows MyPhaseLift.m:106-107; its
+The rank-1 extraction follows MyPhaseLift.m:106-107; its
 eigenvector is defined only up to a global phase.
 """
 
@@ -164,3 +166,28 @@ def phaselift_bm(generator, a, b, cfg: PhaseLiftConfig = PhaseLiftConfig()
     loss, _ = loss_grad(v)
     return PhaseLiftResult(x=x, lifted=v @ v.conj().transpose(-1, -2),
                            objective=loss)
+
+
+class PairPhaseLiftResult(NamedTuple):
+    x_re: torch.Tensor
+    x_im: torch.Tensor
+    objective: torch.Tensor
+
+
+def phaselift_bm_pair(generator, a, b, cfg: PhaseLiftConfig = PhaseLiftConfig()
+                      ) -> PairPhaseLiftResult:
+    """Burer-Monteiro PhaseLift on (re, im) pairs: ``a`` a Pair (m, n)
+    of float32 planes, ``b`` (m,) intensities; returns the rank-1
+    extraction as (re, im) and the objective.
+
+    The JAX package's pair form starts the spectral initialization's
+    orthogonal iteration from a random draw and solves the real
+    embeddings with its Jacobi ``eigh``; the port takes the complex
+    Hermitian matrices straight to ``torch.linalg.eigh`` (the top-k
+    eigenpairs, exactly), so ``generator`` is unused.  The extracted
+    vector is defined up to a global phase.
+    """
+    res = phaselift_bm(generator, torch.complex(a.re, a.im),
+                       b.to(a.re.dtype), cfg)
+    return PairPhaseLiftResult(x_re=res.x.real, x_im=res.x.imag,
+                               objective=res.objective)

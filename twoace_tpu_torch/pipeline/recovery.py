@@ -22,6 +22,7 @@ from ..config import (DEFAULT_RSS_FCT, MULTIRES_SEPARATION,
                       MULTIRES_THRESHOLDS, SEED_TABLE, AdmmConfig,
                       ArrayConfig, MethodFlags, probe_budget_grid)
 from ..interop import resolve_device
+from ..models.steering import angle_dictionary
 from ..ops.admm import (_make_prox, _normalize_problem, _quality, infer_admm,
                         solve_lowrank_multi)
 from ..ops.dispatch import recover_channel
@@ -116,6 +117,8 @@ def recover_campaign(cb_rows, rss_dbm, methods: MethodFlags,
         flags = dataclasses.replace(methods, admm_lowrank_v4=False,
                                     admm_nuclear=True)
     names = tuple(flags.enabled())
+    ad = angle_dictionary(cc.array, cc.searching_area_deg,
+                          dtype=cb_rows.dtype, device=cb_rows.device)
     h_amp = np.zeros((len(m_grid), len(names), n))
     h_angle = np.zeros_like(h_amp)
     for i, m_cur in enumerate(m_grid):
@@ -126,7 +129,7 @@ def recover_campaign(cb_rows, rss_dbm, methods: MethodFlags,
         picked = pick_beams(fold_in(g_i, 1), cc.beam_mode, m_cur, cb_train)
         est = recover_channel(fold_in(g_i, 2), rss_train[picked],
                               cb_train[picked], flags, cc.array,
-                              s=cc.n_paths, admm_cfg=cc.admm)
+                              s=cc.n_paths, ad=ad, admm_cfg=cc.admm)
         for j, name in enumerate(names):
             _store(h_amp, h_angle, i, j, est[name], cc.rss_fct)
     return RecoveryOutput(h_amp=h_amp, h_angle=h_angle, m_grid=m_grid,
@@ -166,8 +169,8 @@ def recover_multiresolution(cb_rows, rss_dbm, seed_id: int = 1,
 def recover_phaselift(cb_rows, rss_dbm, seed_id: int = 1,
                       cc: CampaignConfig = CampaignConfig(), device="cuda"
                       ) -> RecoveryOutput:
-    """PhaseLift baseline entry (ref: ..._phaselift.m); raises until the
-    baselines are ported."""
+    """PhaseLift baseline entry (ref: ..._phaselift.m): the lifted FISTA
+    on the testbed's scaling chain at every grid point."""
     return recover_campaign(cb_rows, rss_dbm, MethodFlags(
         admm_lowrank_v4=False, phaselift=True), cc, seed_id, device=device)
 
@@ -176,8 +179,8 @@ def recover_directional(cb_rows, rss_dbm, seed_id: int = 1,
                         cc: Optional[CampaignConfig] = None, device="cuda"
                         ) -> RecoveryOutput:
     """PLOMP/PLGAMP on a directional codebook (ref: ..._directional.m,
-    d = 2.9 mm, 180 deg search area); raises until the baselines are
-    ported."""
+    d = 2.9 mm, 180 deg search area), through the sparse dictionary of
+    the campaign's search area."""
     if cc is None:
         cc = CampaignConfig(array=ArrayConfig(spacing=2.9e-3),
                             searching_area_deg=180.0)

@@ -1,9 +1,14 @@
-"""Monte-Carlo simulation drivers (port of the Vs_M and Vs_SNR parts of
+"""Monte-Carlo simulation campaigns (port of
 ``twoace_tpu.pipeline.simulation``).
 
   - ``Vs_M{,_par}.m``: recovery error vs number of measurements
     (ref: Numerical_Simulation/main_programs/Vs_M_par.m:75-219)
   - ``Vs_SNR{,_par}.m``: recovery error vs SNR
+  - ``VS_SR_par.m``: measurements needed vs search range
+    (ref: VS_SR_par.m:73-121)
+  - ``Vs_M_Wireless_Insite.m``: error vs M on supplied channel traces
+  - ``Infer_channel_ADMM.m``: windowed inference over an RSS trace
+    (ref: Infer_channel_ADMM.m:108-174)
 
 A cell draws a batch of channels, sensing matrices and measurements (the
 instance axis is a tensor axis), runs every enabled method and scores it.
@@ -16,9 +21,7 @@ codebooks rule out the batch solver), ``impl="complex"`` through
 ``ops.admm.solve_lowrank_multi`` (K5).  The sparse baselines run one
 ``recover_sparse`` per instance (their compression size is
 data-dependent); the H-domain PhaseLift runs ``phaselift_bm`` batched
-over the trials.  ``measurements_needed_vs_range``,
-``sweep_measurements_trace`` and ``infer_channel_windows`` are still to
-port.
+over the trials.
 """
 
 from __future__ import annotations
@@ -31,8 +34,8 @@ import numpy as np
 import torch
 
 from ..config import AdmmConfig, ArrayConfig, ChannelConfig, MethodFlags
-from ..interop import resolve_device
-from ..models.channel import generate_channel
+from ..interop import complex_from_numpy, resolve_device
+from ..models.channel import from_matrix, generate_channel
 from ..models.measurement import generate_measurement
 from ..models.sparse import sparse_formulation
 from ..ops.admm import solve_lowrank_multi
@@ -271,3 +274,195 @@ def sweep_snr(generator: Optional[torch.Generator],
     cells = [(dataclasses.replace(sim, snr_db=float(snr)), m)
              for snr in snr_grid]
     return _sweep(generator, snr_grid, cells, sim, searching_area, device)
+
+
+#: The reference's per-search-range (Mt = Mr grid, G grid) pairs
+#: (VS_SR_par.m:76-99): G sets the per-side AoD/AoA quantization
+#: NQt = NQr for that point (sub_VS_SR_par.m:133-135).
+VS_SR_GRIDS: Dict[int, Tuple[Tuple[int, ...], Tuple[int, ...]]] = {
+    20: ((2, 3, 4, 5), (25, 35, 45, 55)),
+    30: ((4, 5, 6, 7), (25, 40, 55, 60)),
+    40: ((5, 6, 7, 8, 9), (25, 40, 55, 60, 70)),
+    50: ((6, 7, 8, 9, 10, 11), (25, 40, 45, 55, 65, 70)),
+    60: ((8, 9, 10, 11, 12), (40, 50, 55, 60, 70)),
+    70: ((9, 10, 11, 12, 13), (40, 55, 60, 70, 75)),
+    80: ((10, 11, 12, 13, 14), (45, 55, 60, 70, 75)),
+}
+
+
+class VsSrResult(NamedTuple):
+    ranges: np.ndarray                 #: (R,) search ranges in degrees
+    maee_targets: Tuple[float, ...]    #: the MAEE ladder (degrees)
+    #: method -> (R, T) total measurements whose MAEE is closest to each
+    #: target (the reference reports M^2, VS_SR_par.m:118-121)
+    m_needed: Dict[str, np.ndarray]
+    #: method -> list over ranges of per-grid-point MAEE (degrees)
+    maee_curves: Dict[str, list]
+    #: method -> list over ranges of per-grid-point mean NMSE (linear)
+    nmse_curves: Dict[str, list]
+    m_grids: list                      #: per-range Mt = Mr (or total-M) grids
+    g_grids: list                      #: per-range dictionary sizes
+    #: "cell" and each method group -> list over ranges of per-point host
+    #: seconds, as :class:`SweepResult` records them
+    seconds: Optional[Dict[str, list]] = None
+
+
+def measurements_needed_vs_range(generator: Optional[torch.Generator],
+                                 ranges_deg: Sequence[float],
+                                 m_grid: Optional[Sequence[int]] = None,
+                                 g_grid: Optional[Sequence[int]] = None,
+                                 maee_targets: Sequence[float] = (
+                                     0.6, 0.8, 1.0),
+                                 sim: SimulationConfig = SimulationConfig(),
+                                 device="cuda") -> VsSrResult:
+    """Measurements needed vs search range, at the reference's semantics
+    (ref: VS_SR_par.m:73-121, sub_VS_SR_par.m).
+
+    Each range takes its (M, G) grid from :data:`VS_SR_GRIDS` (G sets the
+    dictionary quantization NQt = NQr of that point), the SNR from
+    ``sim.snr_db``; for each MAEE target the selected budget is the grid
+    point whose mean angle error is closest to the target
+    (``nanargmin |MAEE - target|``, VS_SR_par.m:118-119, not the first M
+    that reaches it), reported as total measurements Mt*Mr.  Point j of
+    range i draws from ``fold_in(generator, i * 1024 + j)``.
+
+    ``m_grid``/``g_grid`` replace the table with one grid for every range
+    (G defaults to ``sim.array.grid_t``); a range the table lacks raises
+    ``ValueError`` without them.  H-domain methods (the A2 family) get
+    their MAEE through the dictionary projection of :func:`_evaluate`.
+    """
+    # "maee" / "nmse" / "sec" -> method -> list over ranges of the
+    # per-point values
+    acc: Dict[str, Dict[str, list]] = {"maee": {}, "nmse": {}, "sec": {}}
+    m_grids, g_grids = [], []
+    for r_i, sr in enumerate(ranges_deg):
+        if m_grid is not None:
+            ms = tuple(m_grid)
+            gs = tuple(g_grid) if g_grid is not None \
+                else (sim.array.grid_t,) * len(ms)
+        else:
+            try:
+                ms, gs = VS_SR_GRIDS[int(round(sr))]
+            except KeyError:
+                raise ValueError(
+                    f"no reference (M, G) grid for range {sr}deg "
+                    f"(table covers {sorted(VS_SR_GRIDS)}); pass m_grid")
+        m_grids.append(list(ms))
+        g_grids.append(list(gs))
+        points: Dict[str, Dict[str, list]] = {key: {} for key in acc}
+        for j, (m_j, g_j) in enumerate(zip(ms, gs)):
+            sim_j = dataclasses.replace(
+                sim, array=dataclasses.replace(sim.array, nqt=int(g_j),
+                                               nqr=int(g_j)))
+            mt, mr = _mt_mr(sim_j, m_j)
+            stats: dict = {}
+            t0 = time.perf_counter()
+            nm, an, _ = _one_cell(fold_in(generator, r_i * 1024 + j), sim_j,
+                                  mt, mr, float(sr), device, stats)
+            sec = dict(cell=time.perf_counter() - t0,
+                       **stats.get("seconds", {}))
+            for key, d in (("maee", an), ("nmse", nm), ("sec", sec)):
+                for k, v in d.items():
+                    points[key].setdefault(k, []).append(v)
+        for key, d in points.items():
+            for k, v in d.items():
+                acc[key].setdefault(k, []).append(np.asarray(v))
+
+    m_needed: Dict[str, np.ndarray] = {}
+    for k, curves in acc["maee"].items():
+        sel = np.full((len(ranges_deg), len(maee_targets)), np.nan)
+        for r_i, curve in enumerate(curves):
+            for t_i, tgt in enumerate(maee_targets):
+                p = int(np.nanargmin(np.abs(np.asarray(curve) - tgt)))
+                mt, mr = _mt_mr(sim, m_grids[r_i][p])
+                sel[r_i, t_i] = mt * mr
+        m_needed[k] = sel
+    return VsSrResult(ranges=np.asarray(ranges_deg),
+                      maee_targets=tuple(maee_targets),
+                      m_needed=m_needed, maee_curves=acc["maee"],
+                      nmse_curves=acc["nmse"], m_grids=m_grids,
+                      g_grids=g_grids, seconds=acc["sec"])
+
+
+def sweep_measurements_trace(generator: Optional[torch.Generator], h_traces,
+                             m_grid: Sequence[int],
+                             sim: SimulationConfig = SimulationConfig(),
+                             searching_area: float = 180.0,
+                             normalize: bool = True,
+                             device="cuda") -> SweepResult:
+    """Error vs measurement count on supplied channel traces (ref:
+    Numerical_Simulation/main_programs/Vs_M_Wireless_Insite.m:140-233).
+
+    ``h_traces``: (U, nr, nt) complex, one ray-traced or measured H per
+    Monte-Carlo instance (``n_trials`` is U), wrapped by
+    :func:`..models.channel.from_matrix` (per-entry magnitude
+    normalization ``H ./ abs(H)`` with ``normalize``, ref :167-172); each
+    point runs the sensing -> measurement -> recovery cell of the
+    synthetic sweeps, in complex64 as they run, drawing from
+    ``fold_in(generator, i)``.  Angle errors are NaN: traces carry no
+    path angles.  A tensor's device is used; numpy goes to ``device``.
+    """
+    if not isinstance(h_traces, torch.Tensor):
+        h_traces = complex_from_numpy(h_traces, device)
+    ch = from_matrix(h_traces.to(torch.complex64), normalize=normalize)
+    cfg = sim.array
+    sim = dataclasses.replace(sim, n_trials=ch.h_matrix.shape[0])
+    half = searching_area / 2
+    nmse_acc: Dict[str, list] = {}
+    sec_acc: Dict[str, list] = {}
+    for i, m in enumerate(m_grid):
+        g_i = fold_in(generator, i)
+        t0 = time.perf_counter()
+        rep = sparse_formulation(cfg, ch, searching_area)
+        mt, mr = _mt_mr(sim, m)
+        sensing = generate_sensing_matrix(
+            fold_in(g_i, 0), sim.beam_method, mt, mr, cfg, rep.ad,
+            aod_range=(-half, half), aoa_range=(-half, half),
+            batch=sim.n_trials)
+        w_noise = None if sim.beam_method in _NO_COMBINER_MODES \
+            else sensing.w
+        meas = generate_measurement(fold_in(g_i, 1), sensing.fw, ch.vec_h,
+                                    sim.snr_db, sim.add_noise, w=w_noise,
+                                    mt=mt)
+        stats: dict = {}
+        out = _recover_all(fold_in(g_i, 2), sim, meas, sensing, rep, ch,
+                           stats)
+        for name, est in out.items():
+            vec_est = (est @ rep.ad.T.to(est.dtype)
+                       if est.shape[-1] == rep.ad.shape[1] else est)
+            nmse_acc.setdefault(name, []).append(float(torch.mean(
+                nmse_h_projection(vec_est, ch.vec_h.to(vec_est.dtype)))))
+        for k, v in dict(cell=time.perf_counter() - t0,
+                         **stats["seconds"]).items():
+            sec_acc.setdefault(k, []).append(v)
+    return SweepResult(grid=np.asarray(m_grid),
+                       nmse={k: np.asarray(v) for k, v in nmse_acc.items()},
+                       aoda_err={k: np.full(len(v), np.nan)
+                                 for k, v in nmse_acc.items()},
+                       seconds={k: np.asarray(v) for k, v in sec_acc.items()})
+
+
+def infer_channel_windows(generator: Optional[torch.Generator], cb_rows,
+                          rss_amps, cfg: ArrayConfig, window: int = 200,
+                          n_windows: int = 30,
+                          admm: AdmmConfig = AdmmConfig(),
+                          device="cuda") -> np.ndarray:
+    """Windowed batch inference over a recorded RSS trace (ref:
+    Infer_channel_ADMM.m:147-171): window i solves the complex A2 family
+    (:func:`..ops.admm.solve_lowrank_multi`, K5) on probes
+    ``[i*window, (i+1)*window)``, drawing from ``fold_in(generator, i)``.
+
+    ``cb_rows``: (total, nt*nr) complex probe rows; ``rss_amps``: (total,)
+    linear amplitudes; tensors keep their device, numpy goes to
+    ``device``.  Returns the (n_windows, nr, nt) estimates in numpy.
+    """
+    if not isinstance(cb_rows, torch.Tensor):
+        cb_rows = complex_from_numpy(cb_rows, device)
+    rss_amps = torch.as_tensor(rss_amps, device=cb_rows.device)
+    ests = []
+    for i in range(n_windows):
+        sl = slice(i * window, (i + 1) * window)
+        res = solve_lowrank_multi(fold_in(generator, i), cb_rows[sl],
+                                  rss_amps[sl], cfg.nt, cfg.nr, admm)
+        ests.append(res.x.reshape(cfg.nt, cfg.nr).T.cpu().numpy())
+    return np.stack(ests)

@@ -21,7 +21,7 @@ from ..utils.rng import fold_in
 from .codebooks import directional_beams_angular, random_sensing_rows
 
 #: modes of the reference that wait for their codebook family or for
-#: ``bayes_opt`` (ROADMAP.md, modules queue item 3)
+#: ``bayes_opt`` (ROADMAP.md, modules queue item 1)
 UNPORTED_MODES = ("Directional_Beam", "Directional_Random_Beam",
                   "Region_Random_Beam", "Random_Beam_Bayes")
 
@@ -80,7 +80,7 @@ def generate_sensing_matrix(generator: Optional[torch.Generator], method: str,
     elif method in UNPORTED_MODES:
         raise NotImplementedError(
             f"sensing mode {method} is not ported yet (ROADMAP.md, modules "
-            "queue item 3)")
+            "queue item 1)")
     else:
         raise ValueError(f"unknown sensing method: {method}")
     meas_mat = torch.einsum("umn,np->ump", fw, ad.to(fw.dtype))
@@ -102,5 +102,5 @@ def pick_beams(generator: Optional[torch.Generator], method: str, m: int,
     if method == "Bayes_Beam":
         raise NotImplementedError(
             "Bayes_Beam needs sensing/bayes_opt.py, not ported yet "
-            "(ROADMAP.md, modules queue item 3)")
+            "(ROADMAP.md, modules queue item 1)")
     raise ValueError(f"unknown beam-pick method: {method}")

@@ -1,18 +1,18 @@
 """Recovery metrics (port of ``twoace_tpu.utils.metrics``): channel NMSE,
 RSS prediction error, phase quantization, and the sparse and angle
 readouts of the simulation campaigns (``angles_from_sparse``,
-``sparse_projection_omp``, ``angle_error``).  ``array_response_mse`` and
-``beamforming_gain`` are still to port."""
+``sparse_projection_omp``, ``angle_error``), the array-response MSE and
+the beamforming gain of an estimate."""
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from ..models.steering import virtual_grid
+from ..models.steering import steering_vector, unvec_channel, virtual_grid
 
 
 def phase_align(x_est, x_ref):
@@ -161,3 +161,49 @@ def angle_error(aod_est, aoa_est, aod_true, aoa_true) -> AngleEstimate:
     aoa_err = torch.mean(torch.abs(aoa_e - aoa_t), dim=-1)
     return AngleEstimate(aod_deg=aod_e, aoa_deg=aoa_e, aod_err=aod_err,
                          aoa_err=aoa_err, aoda_err=0.5 * (aod_err + aoa_err))
+
+
+def array_response_mse(aod_est, aoa_est, aod_true, aoa_true, cfg):
+    """MSE between the true and the estimated array-response (steering)
+    matrices, Tx and Rx averaged (ref: Evaluation_Recovery.m:166-200).
+    Angles in degrees, (..., L); the steering matrices are complex64, as
+    the JAX package builds them."""
+    def steer(deg, n):
+        return steering_vector(torch.sin(torch.deg2rad(deg)), n, cfg.k_d)
+
+    def fro2(x):
+        return torch.sum(x.abs() ** 2, dim=(-2, -1))
+
+    a_tx_t, a_tx_e = steer(aod_true, cfg.nt), steer(aod_est, cfg.nt)
+    a_rx_t, a_rx_e = steer(aoa_true, cfg.nr), steer(aoa_est, cfg.nr)
+    mse_t = fro2(a_tx_t - a_tx_e) / fro2(a_tx_t)
+    mse_r = fro2(a_rx_t - a_rx_e) / fro2(a_rx_t)
+    return 0.5 * (mse_t + mse_r)
+
+
+def beamforming_gain(vec_h_est, h_true, cfg) -> Tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """Signal strength under SVD analog (2-bit) and digital beamforming
+    (ref: Evaluate_simu_rss.m:32-40): the dominant singular vectors of the
+    *estimated* channel, projected to constant modulus (and quantized for
+    the analog gain), applied to the *true* (..., nr, nt) channel.
+
+    Returns ``(analog_gain, digital_gain)``, each shaped like the batch.
+    The digital gain does not depend on the SVD's phase convention; the
+    analog gain does, in the JAX package too: 2-bit quantization does not
+    commute with the singular vectors' free global phase.
+    """
+    h_est = unvec_channel(vec_h_est, cfg.nr, cfg.nt)
+    u, _, vh = torch.linalg.svd(h_est, full_matrices=False)
+    w_dig = torch.exp(1j * torch.angle(u[..., :, 0])) / math.sqrt(cfg.nr)
+    f_dig = torch.exp(1j * torch.angle(vh[..., 0, :].conj())) \
+        / math.sqrt(cfg.nt)
+    w_ana = quantize_ps(w_dig[..., None], cfg.phase_bit)[..., 0]
+    f_ana = quantize_ps(f_dig[..., None], cfg.phase_bit)[..., 0]
+    h_true = h_true.to(u.dtype)
+
+    def gain(w, f):
+        return torch.abs(torch.sum(w.conj() * (h_true @ f[..., None])[..., 0],
+                                   dim=-1))
+
+    return gain(w_ana, f_ana), gain(w_dig, f_dig)
