@@ -312,6 +312,23 @@ def test_per_column_pass_is_reproducible_over_the_held_trips(witness, m):
         assert cs.rel_err(run, f64) <= cs.K3_RTOL / 2
 
 
+@pytest.mark.parametrize("nt, m", chip_smoke.K3_COLUMN_CASES[
+    len(chip_smoke.K3_COLUMN_MS):], ids=lambda v: str(v))
+def test_per_column_pass_is_reproducible_at_the_simulations_shapes(nt, m):
+    """The same at the shapes the trace sweep (16x16, m 529) and the VS_SR
+    campaign (12x12, m 196 and 4) give K3, where after K3_TRIPS trips
+    float32 stands 8e-5 to 1.7 from float64: over K3_COLUMN_TRIPS trips
+    the plain version stays within half of K3_RTOL of the float64 run,
+    with the same trips and converged flags, in both passes."""
+    cs = chip_smoke
+    for _, args, kw in cs.k3_cases(m, device="cpu", nt=nt, nr=nt):
+        kw = dict(kw, maxiter=cs.K3_COLUMN_TRIPS)
+        f64 = k3.infer_admm_plain(*cs.cast_args(args, torch.float64), **kw)
+        run = k3.infer_admm_plain(*args, **kw)
+        assert torch.equal(run[3], f64[3]) and torch.equal(run[2], f64[2])
+        assert cs.rel_err(run, f64) <= cs.K3_RTOL / 2
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("scale_by_row, nt, nr, m, trips", [
     (True, NT, NR, M, 30), (False, NT, NR, M, 30), (True, 16, 2, 8, 30),

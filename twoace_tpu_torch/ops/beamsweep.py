@@ -23,9 +23,6 @@ from ..models.steering import steering_vector
 from ..sensing.codebooks import directional_beams_angular
 from ..utils.rng import fold_in
 
-#: random subsets drawn at a time by :func:`subset_sweep_rss`
-SUBSET_CHUNK = 1024
-
 
 class SweepResult(NamedTuple):
     f_best: torch.Tensor      #: (nt,) winning precoder
@@ -96,16 +93,13 @@ def subset_sweep_rss(generator: Optional[torch.Generator], rss_matrix,
     both link ends), take the largest RSS of the induced submatrix, and
     average over ``n_runs`` draws.  ``rss_matrix``: (total, total), a
     tensor on the device the work runs on; the subsets are drawn from
-    ``generator`` on the CPU, SUBSET_CHUNK draws at a time."""
+    ``generator`` on the CPU, all in one batch as the JAX package draws
+    them."""
     total = rss_matrix.shape[0]
-    best = []
-    for start in range(0, n_runs, SUBSET_CHUNK):
-        runs = min(SUBSET_CHUNK, n_runs - start)
-        idx = torch.rand((runs, total), generator=generator).argsort(dim=1)
-        idx = idx[:, :m].to(rss_matrix.device)
-        sub = rss_matrix[idx[:, :, None], idx[:, None, :]]
-        best.append(sub.amax(dim=(1, 2)))
-    return torch.cat(best).mean()
+    idx = torch.rand((n_runs, total), generator=generator).argsort(dim=1)
+    idx = idx[:, :m].to(rss_matrix.device)
+    sub = rss_matrix[idx[:, :, None], idx[:, None, :]]
+    return sub.amax(dim=(1, 2)).mean()
 
 
 def aggregate_beamforming(rss_bf, rss_sweep_phi=None, rss_sweep_theta=None,

@@ -200,12 +200,11 @@ def _evaluate(out, rep, ch, sim: SimulationConfig):
     return nmse_d, ang_d, trials_d
 
 
-def _one_cell(generator: Optional[torch.Generator], sim: SimulationConfig,
-              mt: int, mr: int, searching_area: float, device="cuda",
-              stats: Optional[dict] = None):
-    """One (config, M) Monte-Carlo cell: channels -> sensing ->
-    measurements -> recovery -> metrics (ref: Vs_M_par.m:149-197).
-    ``stats`` as in :func:`_recover_all`."""
+def draw_cell(generator: Optional[torch.Generator], sim: SimulationConfig,
+              mt: int, mr: int, searching_area: float, device="cuda"):
+    """The draws of one (config, M) Monte-Carlo cell: channels, their
+    sparse formulation, sensing and measurements, as :func:`_one_cell`
+    recovers them.  Returns ``(ch, rep, sensing, meas)``."""
     cfg = sim.array
     dev = resolve_device(device)
     ch = generate_channel(fold_in(generator, 0), cfg, sim.channel,
@@ -223,6 +222,17 @@ def _one_cell(generator: Optional[torch.Generator], sim: SimulationConfig,
     w_noise = None if sim.beam_method in _NO_COMBINER_MODES else sensing.w
     meas = generate_measurement(fold_in(generator, 2), sensing.fw, ch.vec_h,
                                 sim.snr_db, sim.add_noise, w=w_noise, mt=mt)
+    return ch, rep, sensing, meas
+
+
+def _one_cell(generator: Optional[torch.Generator], sim: SimulationConfig,
+              mt: int, mr: int, searching_area: float, device="cuda",
+              stats: Optional[dict] = None):
+    """One (config, M) Monte-Carlo cell: channels -> sensing ->
+    measurements -> recovery -> metrics (ref: Vs_M_par.m:149-197).
+    ``stats`` as in :func:`_recover_all`."""
+    ch, rep, sensing, meas = draw_cell(generator, sim, mt, mr,
+                                       searching_area, device)
     out = _recover_all(fold_in(generator, 3), sim, meas, sensing, rep, ch,
                        stats)
     return _evaluate(out, rep, ch, sim)
