@@ -30,11 +30,11 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      per-window ms, tracked NMSE, the budget branches, launches and a
      profiled window; then a 10-window ``track_simulated`` on a
      ``brownian_trace``;
-  6. the testbed campaign through the complex family (K5):
-     ``recover_a2only`` over the 16x16 probe-budget grid on 3968 random
-     probe rows, a noiseless M = 1024 point, ``recover_a2nuclear``,
+  6. the testbed campaign through the complex family (K5) on 3968 random
+     probe rows: a noiseless M = 1024 point, ``recover_a2nuclear``,
      ``recover_warm_sweep``, ``track(solver=None)`` for TRACK_WINDOWS
-     windows and one profiled M = 1024 solve;
+     windows and one profiled M = 1024 solve (its ``recover_a2only``
+     grid runs in phase 9, through the testbed driver);
   7. the headline Vs_M campaign of VSM_r05.json: ``sweep_measurements``
      at 16x16 with A2 on the pair path (K3) against PhaseLift, PLOMP,
      PLGAMP and perfect/noisy-phase CS over VSM_r05's points from M 529,
@@ -60,6 +60,22 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      new baseline on its first trial, held against the same call on the
      CPU in complex64 and complex128, and of the metrics and the sector
      sweep, held likewise;
+  9. the testbed driver: the four sensing modes ported last at 16x16, M
+     1024, batch 4, on the card and the CPU (the directional beams equal,
+     Random_Beam_Bayes's C 4096 selection held by its A-criterion against
+     the same selection on the CPU, run by a child process from phase 8
+     on, and both below the initial design's); ``pick_beams``'
+     ``Bayes_Beam`` over 40000 candidates, timed; ``TestbedRunner`` at
+     TestbedConfig's defaults on phase 6's channel: the five campaigns,
+     ``estimate("random", "a2only")`` over the probe-budget grid (K5 on
+     every point; phase 6's rows), ``beamforming_comparison`` and
+     ``evaluate_codebook_rss`` against the true channel's beams; a second
+     runner resuming the random campaign from the checkpoints (no
+     provider call, RSS bit-identical); four random rounds through
+     ``TcpProvider`` and ``native/rss_server`` held to the noiseless RSS;
+     ``python -m twoace_tpu_torch testbed`` in a subprocess (its NMSE
+     below CLI_NMSE_DB) and again with CUDA hidden (it must fail); one
+     Z-free ``infer_admm_pair`` (K4, K1, no K2) held against the CPU;
 
 Between phases 2 and 3 the chain benchmark (``chain``), K6's own path,
 runs ``scripts/torch_bench_pallas_mm.py``'s body.
@@ -103,6 +119,7 @@ import multiprocessing
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -130,12 +147,19 @@ from twoace_tpu_torch.ops.pair_solver import (  # noqa: E402
     solve_lowrank_multi_pair_batch)
 from twoace_tpu_torch.ops.prox import profile_ladder_arrays  # noqa: E402
 from twoace_tpu_torch.pipeline import mobility, recovery, simulation  # noqa: E402
+from twoace_tpu_torch.models.steering import angle_dictionary  # noqa: E402
+from twoace_tpu_torch.pipeline.testbed import (  # noqa: E402
+    TestbedConfig, TestbedRunner)
+from twoace_tpu_torch.sensing.bayes_opt import a_criterion  # noqa: E402
 from twoace_tpu_torch.sensing.codebooks import (  # noqa: E402
-    kron_probe_rows, random_codebook)
+    kron_probe_rows, random_codebook, random_sensing_rows)
 from twoace_tpu_torch.sensing.provider import SyntheticProvider  # noqa: E402
+from twoace_tpu_torch.sensing.sensing_matrix import (  # noqa: E402
+    generate_sensing_matrix, pick_beams)
 from twoace_tpu_torch.utils.metrics import nmse_h_projection  # noqa: E402
 from twoace_tpu_torch.utils.rng import fold_in  # noqa: E402
-from twoace_tpu_torch.utils.units import dbm_to_amplitude  # noqa: E402
+from twoace_tpu_torch.utils.units import (  # noqa: E402
+    RSSI_OFFSET, RSSI_SLOPE, dbm_to_amplitude)
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "scripts"))
@@ -274,9 +298,11 @@ VSM_TOL_DB = 3.0
 VSM_A2_WINS = (784, 1024)
 #: the complex-family cell (A2 alone): M 1024, 2 trials; the profiled
 #: cell (every method): M 1024, 1 trial, for the script's time limit;
-#: the Vs_SNR point: VSSNR_r05's M 529 at SNR 10, VSM_TRIALS trials
+#: the Vs_SNR point: VSSNR_r05's M 529 at SNR 10, VSSNR_TRIALS trials
+#: (cut from 5 to 3 for the script's time limit when phase 9 came: the
+#: smoke took 918 s of its 1200 with 5, PERF.md section 4)
 VSM_SIDE_TRIALS, VSM_PROFILE_TRIALS = 2, 1
-VSSNR_M, VSSNR_SNR = 529, 10.0
+VSSNR_M, VSSNR_SNR, VSSNR_TRIALS = 529, 10.0, 3
 
 #: phase 8: the VS_SR campaign of VSSR_r05.json
 #: (scripts/run_vssr_r05.py:34-50): 12x12, 1 path, Rician K 5, SNR 0 with
@@ -316,8 +342,9 @@ VSSR_CPU_THREADS = 3
 #: script's time limit (PLOMP took 82 of its 92 s at five on an H100)
 TRACE_COUNT, TRACE_SEED, TRACE_M = 2, 8, (529, 1024)
 #: windowed inference on phase 6's probe rows (JAX's default of 30
-#: windows needs 6000 rows)
-WINDOW, WINDOWS = 200, 5
+#: windows needs 6000 rows); cut from 5 windows to 3 for the script's time
+#: limit when phase 9 came (PERF.md section 4)
+WINDOW, WINDOWS = 200, 3
 #: recover_directional's points of probe_budget_grid(16, 16): from 121
 #: up, cut to M 1024 alone for the script's time limit (the six points
 #: took 44 s on an H100; PERF.md section 4)
@@ -361,6 +388,41 @@ SWEEP_ANGLE_TOL = 0.05
 #: (``scripts/torch_rounding_spread.py windows``)
 WINDOW_FIT_MAX = 0.2
 WINDOW_WELL, WINDOW_WELL_TOL, WINDOW_WELL_DB = 1024, 1e-4, -20.0
+
+#: phase 9: the sensing modes at 16x16, Mt = Mr = SENSE_M (M 1024), batch
+#: SENSE_BATCH, over VSM_AREA; Random_Beam_Bayes draws C = max(4M, 256) =
+#: 4096 candidates (twoace_tpu/sensing/sensing_matrix.py:93)
+SENSE_M, SENSE_BATCH, SENSE_SEED = 32, 4, 9
+#: the Bayes selection on the card against the same selection on the CPU
+#: (a child process, BAYES_CPU_THREADS threads, started with phase 8), by
+#: the A-criterion trace(inv(X^H X + I)) of the picked rows: near-ties
+#: among 4096 candidates can part float32 runs, so indices are not compared
+BAYES_RTOL = 1e-4
+BAYES_CPU_THREADS = 3
+#: pick_beams("Bayes_Beam") over a BAYES_ROWS-row random 2-bit codebook:
+#: C = min(num, 40000) (sensing_matrix.py:205), M 1024
+BAYES_ROWS, BAYES_SEED = 40000, 10
+#: the TCP provider's first TCP_ROUNDS random rounds against the noiseless
+#: RSS: within half an RSSI step (the server rounds to 0.0652 dB words)
+#: plus float32 rounding of the card's reference
+TCP_ROUNDS = 4
+TCP_ATOL = 0.5 * 0.0652 + 1e-3
+#: the CLI's testbed command (8x8, 16 rounds x 16 sectors: 256 probe rows
+#: for 64 unknowns, 0.3 dB jitter) must reach this NMSE
+CLI_ARGS = ("testbed", "--nt", "8", "--nr", "8", "--rounds", "16",
+            "--sectors", "16", "--method", "a2only")
+CLI_NMSE_DB = -10.0
+CLI_TIMEOUT = 400
+#: the Z-free branch: 16x16, m 1024, ZFREE_LANES lanes of phase 3's
+#: problem from a spectral init, card against CPU by ``zfree_dist``.  From
+#: this cold start the float32 solve on the CPU stands 1.5e-4 from the
+#: same solve in float64 after its ~135 trips (a 1e-7 change of b moves it
+#: by 4e-6; ``scripts/torch_rounding_spread.py zfree``), so two float32
+#: solves may part by 3e-4: held at about 3x that
+ZFREE_LANES, ZFREE_RTOL = 3, 1e-3
+#: the estimated channel's SVD beam against the true channel's, measured
+#: through the provider (0.5 dB jitter): at most this many dB weaker
+BF_DB_GAP = 3.0
 
 #: H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 flop/s
 #: outside the tensor cores, dense TF32 flop/s on the tensor cores
@@ -1482,21 +1544,25 @@ def phase5_mobility():
 
 
 def campaign_workload(device="cuda"):
-    """Phase 6's testbed inputs, as ``pipeline/testbed.py``
-    (``run_random_campaign``) builds its random campaign: a 16x16 2-bit
-    Tx codebook of 64 rounds x 62 sectors and a 64-entry Rx codebook,
-    kron'd sector-major (``interleave=True``) into 3968 probe rows; a
-    3-path ``generate_channel`` scaled by CHANNEL_SCALE; its RSS in dBm
-    from ``SyntheticProvider`` at its defaults (0.5 dB jitter, 10 dumps,
-    RSSI quantization) and without jitter or quantization.  Every draw is
-    made on the CPU from CAMPAIGN_SEED, so ``device="cpu"`` gives the
-    same inputs.  Returns ``(cb, x_true, rss_dbm, rss_dbm_noiseless)``."""
+    """Phase 6's testbed inputs, drawn as ``TestbedRunner(...,
+    generator=torch.Generator().manual_seed(CAMPAIGN_SEED))``'s
+    ``run_random_campaign`` draws its random campaign (phase 9 runs that
+    campaign and finds the same rows): a 16x16 2-bit Tx codebook of 64
+    rounds x 62 sectors and a 64-entry Rx codebook, kron'd sector-major
+    (``interleave=True``) into 3968 probe rows; a 3-path
+    ``generate_channel`` scaled by CHANNEL_SCALE; its RSS in dBm from
+    ``SyntheticProvider`` at its defaults (0.5 dB jitter, 10 dumps, RSSI
+    quantization) and without jitter or quantization.  Every draw is made
+    on the CPU from CAMPAIGN_SEED, so ``device="cpu"`` gives the same
+    inputs.  Returns ``(cb, x_true, rss_dbm, rss_dbm_noiseless)``."""
     cfg = ArrayConfig(nt=NT, nr=NR)
     n_paths = recovery.CampaignConfig().n_paths
     g = torch.Generator().manual_seed(CAMPAIGN_SEED)
     rounds, sectors = CAMPAIGN_ROUNDS, CAMPAIGN_SECTORS
-    tx = random_codebook(fold_in(g, 0), rounds * sectors, NT, device=device)
-    rx = random_codebook(fold_in(g, 1), rounds, NR, device=device)
+    g_random = fold_in(g, 4)
+    tx = random_codebook(fold_in(g_random, 0), rounds * sectors, NT,
+                         device=device)
+    rx = random_codebook(fold_in(g_random, 1), rounds, NR, device=device)
     cb = kron_probe_rows(tx.rows().reshape(rounds, sectors, NT), rx.rows(),
                          interleave=True)
     ch = generate_channel(fold_in(g, 2), cfg, ChannelConfig(n_paths=n_paths),
@@ -1562,7 +1628,8 @@ def run_campaign(label, fn):
 def phase6_campaign(cold_k3):
     """The testbed recovery campaign on the card (see campaign_workload),
     at the default CampaignConfig (16x16, AdmmConfig maxiter 500, three
-    restarts)."""
+    restarts).  Its ``recover_a2only`` grid runs in phase 9, through
+    ``TestbedRunner.estimate``."""
     cb, x_true, rss, clean = campaign_workload()
     x_np = x_true.cpu().numpy()
     cc = recovery.CampaignConfig(array=ArrayConfig(nt=NT, nr=NR))
@@ -1572,24 +1639,6 @@ def phase6_campaign(cold_k3):
     def add(counts):
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
-
-    out, calls, wall, counts = run_campaign(
-        "recover_a2only", lambda: recovery.recover_a2only(cb, rss, cc=cc))
-    add(counts)
-    if len(calls) != len(grid):
-        raise RuntimeError(f"recover_a2only ran {len(calls)} solves for "
-                           f"{len(grid)} grid points")
-    for i, (m_cur, call) in enumerate(zip(grid, calls)):
-        db = proj_nmse_db(campaign_estimate(out, i), x_np)
-        if not np.isfinite(out.h_amp[i]).all() or call["k5"] <= 0:
-            raise RuntimeError(f"recover_a2only M {m_cur}: non-finite "
-                               f"estimate or no K5 launch")
-        print(f"[6 a2only] M {m_cur}: {call['s']:.3f} s | trips "
-              f"{call['trips']} | K5 launches {call['k5']} | quality "
-              f"{call['quality']:.6f} | NMSE {db:.2f} dB", flush=True)
-    print(f"[6 a2only] recover_a2only {NT}x{NR}, {CAMPAIGN_ROUNDS * CAMPAIGN_SECTORS}"
-          f" probe rows, grid {grid}: {wall:.2f} s | trips "
-          f"{admm.infer_admm.trips} | launches {counts}", flush=True)
 
     out, calls, wall, counts = run_campaign(
         "the noiseless campaign", lambda: recovery.recover_campaign(
@@ -1779,12 +1828,12 @@ def phase7_vsm():
     res, wall, counts = run_sweep(
         "the Vs_SNR point", lambda: simulation.sweep_snr(
             torch.Generator().manual_seed(VSM_SEED), [VSSNR_SNR], VSSNR_M,
-            vsm_config(VSM_TRIALS, methods=("admm_lowrank_v4", "plomp",
-                                            "plgamp")), VSM_AREA),
+            vsm_config(VSSNR_TRIALS, methods=("admm_lowrank_v4", "plomp",
+                                              "plgamp")), VSM_AREA),
         ("fused_infer_admm",))
     add(counts)
     print_cells("[7 snr] SNR", res)
-    print(f"[7 snr] sweep_snr M {VSSNR_M}, SNR {VSSNR_SNR}, {VSM_TRIALS} "
+    print(f"[7 snr] sweep_snr M {VSSNR_M}, SNR {VSSNR_SNR}, {VSSNR_TRIALS} "
           f"trials: {wall:.1f} s | NMSE dB "
           + " | ".join(f"{k} {10 * np.log10(v[0]):.2f} (VSSNR_r05 "
                        f"{ref_snr['nmse_db'][k][j]})"
@@ -2254,6 +2303,393 @@ def phase8_new_paths(vssr_cpu=None):
     return totals
 
 
+def sense_config():
+    """Phase 9's sensing cell: 16x16 over VSM_AREA, its angle dictionary
+    on the CPU."""
+    cfg = ArrayConfig(nt=NT, nr=NR)
+    half = VSM_AREA / 2
+    ad = angle_dictionary(cfg, VSM_AREA, device="cpu")
+    return cfg, ad, (-half, half)
+
+
+def bayes_cpu(queue):
+    """In a child process: ``Random_Beam_Bayes`` at phase 9's cell on the
+    CPU (the same host draws as the card's call); puts the A-criterion of
+    its rows and its seconds (or the error) on ``queue``."""
+    torch.set_num_threads(BAYES_CPU_THREADS)
+    try:
+        cfg, ad, rng = sense_config()
+        t0 = time.perf_counter()
+        sm = generate_sensing_matrix(
+            torch.Generator().manual_seed(SENSE_SEED), "Random_Beam_Bayes",
+            SENSE_M, SENSE_M, cfg, ad, rng, rng, batch=SENSE_BATCH)
+        queue.put((a_criterion(sm.fw[0]), time.perf_counter() - t0))
+    except BaseException as e:
+        queue.put(repr(e))
+        raise
+
+
+def start_bayes_cpu():
+    """Start :func:`bayes_cpu` in a (daemonic) child process; returns the
+    process and its queue."""
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    proc = ctx.Process(target=bayes_cpu, args=(queue,), daemon=True)
+    proc.start()
+    return proc, queue
+
+
+def check_beams(label, sm, cfg):
+    """Quantized beams: unit-modulus 2-bit rows (|F| = 1/sqrt(nt), |W| =
+    1/sqrt(nr), phases on the pi/2 grid) and FW = kron(F^T, W^H)."""
+    for name, mat, n_ant in (("F", sm.f, cfg.nt), ("W", sm.w[0], cfg.nr)):
+        mag = (mat.abs() * np.sqrt(n_ant) - 1).abs().max()
+        q = torch.angle(mat) / (np.pi / 2)
+        if float(mag) > 1e-5 or float((q - q.round()).abs().max()) > 1e-4:
+            raise RuntimeError(f"{label}: {name} is not unit-modulus 2-bit")
+
+
+def phase9_sensing(bayes):
+    """The four sensing modes ported last, at 16x16, Mt = Mr = 32 (M
+    1024), batch 4, on the card and on the CPU; the Bayes selections at
+    C 4096 (Random_Beam_Bayes) and 40000 (pick_beams' Bayes_Beam)."""
+    cfg, ad, rng = sense_config()
+    ad_dev = ad.cuda()
+    for mode in ("Directional_Beam", "Directional_Random_Beam",
+                 "Region_Random_Beam"):
+        t0 = time.perf_counter()
+        got = generate_sensing_matrix(
+            torch.Generator().manual_seed(SENSE_SEED), mode, SENSE_M,
+            SENSE_M, cfg, ad_dev, rng, rng, batch=SENSE_BATCH)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        want = generate_sensing_matrix(
+            torch.Generator().manual_seed(SENSE_SEED), mode, SENSE_M,
+            SENSE_M, cfg, ad, rng, rng, batch=SENSE_BATCH)
+        check_beams(mode, got, cfg)
+        same = all(torch.equal(getattr(got, f).cpu(), getattr(want, f))
+                   for f in ("f", "w", "fw"))
+        err = float((got.measurement_mat.cpu() - want.measurement_mat)
+                    .abs().max() / want.measurement_mat.abs().max())
+        if not same or not err <= 1e-5:
+            raise RuntimeError(f"{mode}: card against CPU: beams equal "
+                               f"{same}, measurement matrix {err:.3e}")
+        print(f"[9 sensing] {mode} M {SENSE_M ** 2} batch {SENSE_BATCH}: "
+              f"{sec:.3f} s | F, W, FW equal to the CPU's | measurement "
+              f"matrix {err:.3e} from the CPU's (tol 1e-5)", flush=True)
+
+    n_cand = max(4 * SENSE_M ** 2, 256)
+    gen = torch.Generator().manual_seed(SENSE_SEED)
+    cand = random_sensing_rows(gen, n_cand, N, device="cpu")
+    init = torch.randint(0, n_cand, (SENSE_M ** 2,),
+                         generator=fold_in(gen, 1))
+    crit0 = a_criterion(cand[init])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = generate_sensing_matrix(
+        torch.Generator().manual_seed(SENSE_SEED), "Random_Beam_Bayes",
+        SENSE_M, SENSE_M, cfg, ad_dev, rng, rng, batch=SENSE_BATCH)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    rows = got.fw[0]
+    q = torch.angle(rows) / (np.pi / 2)
+    if (float((rows.abs() * np.sqrt(N) - 1).abs().max()) > 1e-5
+            or float((q - q.round()).abs().max()) > 1e-4):
+        raise RuntimeError("Random_Beam_Bayes: rows not unit-modulus 2-bit")
+    crit = a_criterion(rows)
+    proc, queue = bayes
+    t_wait = time.perf_counter()
+    cpu = queue.get(timeout=900)
+    proc.join(timeout=60)
+    if isinstance(cpu, str):
+        raise RuntimeError(f"Random_Beam_Bayes on the CPU failed: {cpu}")
+    crit_cpu, sec_cpu = cpu
+    rel = abs(crit - crit_cpu) / crit_cpu
+    print(f"[9 bayes] Random_Beam_Bayes 16x16 M {SENSE_M ** 2}, C {n_cand}, "
+          f"{2 * SENSE_M ** 2} exchange steps: card {sec:.3f} s (CPU child "
+          f"{sec_cpu:.1f} s at {BAYES_CPU_THREADS} threads; waited "
+          f"{time.perf_counter() - t_wait:.1f} s) | A-criterion card "
+          f"{crit:.6f}, CPU {crit_cpu:.6f} ({rel:.3e} apart, tol "
+          f"{BAYES_RTOL}), initial design {crit0:.6f}", flush=True)
+    if not (rel <= BAYES_RTOL and crit < crit0 and crit_cpu < crit0):
+        raise RuntimeError("Random_Beam_Bayes: the card's criterion is not "
+                           "the CPU's, or a selection does not beat its "
+                           "initial design")
+
+    gen = torch.Generator().manual_seed(BAYES_SEED)
+    cb = random_sensing_rows(gen, BAYES_ROWS, N, device="cuda")
+    g_pick = torch.Generator().manual_seed(BAYES_SEED + 1)
+    cand_idx = torch.randint(0, BAYES_ROWS, (min(BAYES_ROWS, 40000),),
+                             generator=torch.Generator().manual_seed(
+                                 BAYES_SEED + 1))
+    init = torch.randint(0, len(cand_idx), (M,),
+                         generator=fold_in(g_pick, 1))
+    crit0 = a_criterion(cb[cand_idx[init].cuda()])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = pick_beams(g_pick, "Bayes_Beam", M, cb)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    crit = a_criterion(cb[idx])
+    steps = 2 * M
+    tflop = steps * 8 * N * N * len(cand_idx) / 1e12
+    print(f"[9 bayes] pick_beams Bayes_Beam over {BAYES_ROWS} random 2-bit "
+          f"rows, M {M}, C {len(cand_idx)}, {steps} exchange steps: "
+          f"{sec:.3f} s ({tflop:.1f} TFLOP of (256 x 256) @ (256 x C) "
+          f"complex64 products, {tflop / sec:.1f} TFLOP/s) | A-criterion "
+          f"{crit:.6f}, initial design {crit0:.6f}", flush=True)
+    if not crit < crit0:
+        raise RuntimeError("Bayes_Beam: the selection does not beat its "
+                           "initial design")
+
+
+def phase9_testbed(bayes):
+    """Phase 9: the testbed driver on the card.  The sensing modes and
+    Bayes selections (:func:`phase9_sensing`); the CLI's testbed command
+    in a subprocess, overlapping the rest; ``TestbedRunner`` at
+    TestbedConfig's defaults (16x16) on phase 6's channel through
+    ``SyntheticProvider``: its five campaigns, ``estimate("random",
+    "a2only")`` over the probe-budget grid (phase 6's checks and lines:
+    K5 on every point), ``beamforming_comparison`` and
+    ``evaluate_codebook_rss``; a second runner resuming the random
+    campaign from the first's checkpoints; the first TCP_ROUNDS random
+    rounds through ``TcpProvider`` and ``native/rss_server``; the CLI
+    with CUDA hidden; one Z-free ``infer_admm_pair`` (K4, K1, no K2)."""
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    phase9_sensing(bayes)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t_cli = time.perf_counter()
+    cli = subprocess.Popen([sys.executable, "-m", "twoace_tpu_torch",
+                            *CLI_ARGS], cwd=root, env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True)
+    try:
+        add(phase9_runner())
+        add(phase9_zfree())
+        out, err = cli.communicate(timeout=CLI_TIMEOUT)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+    sec = time.perf_counter() - t_cli
+    if cli.returncode != 0:
+        raise RuntimeError(f"the CLI exited {cli.returncode}: {err[-2000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    db = res["nmse_db_final"]
+    print(f"[9 cli] python -m twoace_tpu_torch {' '.join(CLI_ARGS)}: exit 0 "
+          f"after {sec:.1f} s (beside the runner) | {json.dumps(res)}",
+          flush=True)
+    if db is None or not (np.isfinite(db) and db < CLI_NMSE_DB):
+        raise RuntimeError(f"the CLI's nmse_db_final {db} is not below "
+                           f"{CLI_NMSE_DB} dB")
+    hidden = subprocess.run([sys.executable, "-m", "twoace_tpu_torch",
+                             *CLI_ARGS], cwd=root,
+                            env=dict(env, CUDA_VISIBLE_DEVICES=""),
+                            capture_output=True, text=True, timeout=300)
+    last = (hidden.stderr.strip().splitlines() or [""])[-1]
+    print(f"[9 cli] with CUDA hidden: exit {hidden.returncode} | {last}",
+          flush=True)
+    if hidden.returncode == 0:
+        raise RuntimeError("the CLI exited 0 with CUDA hidden")
+    return totals
+
+
+def phase9_runner():
+    """``TestbedRunner`` on phase 6's channel (see
+    :func:`phase9_testbed`)."""
+    cb6, x_true, _, _ = campaign_workload()
+    x_np = x_true.cpu().numpy()
+    cfg = ArrayConfig(nt=NT, nr=NR)
+    totals = {}
+    os.makedirs(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "_scratch"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "_scratch")) as ckpt:
+        tcfg = TestbedConfig(array=cfg, checkpoint_dir=ckpt)
+        prov = SyntheticProvider(vec_h=x_true, generator=fold_in(
+            torch.Generator().manual_seed(CAMPAIGN_SEED), 3))
+        runner = TestbedRunner(tcfg, prov, generator=torch.Generator()
+                               .manual_seed(CAMPAIGN_SEED))
+        aco = None
+        for name, run in (("sweeps", runner.run_sweep_campaigns),
+                          ("directional", runner.run_directional_campaign),
+                          ("random", runner.run_random_campaign),
+                          ("aco", runner.collect_aco),
+                          ("multires", runner.run_multires_campaign)):
+            calls = prov._calls
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            if name == "aco":
+                aco = out
+                print(f"[9 campaign] aco: {prov._calls - calls} probes, one "
+                      f"call each: {sec:.3f} s | wt bits "
+                      f"{out[0].tolist()} | wr bits {out[1].tolist()}",
+                      flush=True)
+                continue
+            keys = {"sweeps": ("theta_phi", "phi")}.get(name, (name,))
+            for key in keys:
+                res = runner.results[key]
+                if not np.isfinite(res["rss_dbm"]).all():
+                    raise RuntimeError(f"campaign {key}: non-finite RSS")
+            rows = {k: tuple(runner.results[k]["rows"].shape) for k in keys}
+            print(f"[9 campaign] {name}: rows {rows}, {prov._calls - calls} "
+                  f"provider calls: {sec:.3f} s", flush=True)
+        random = runner.results["random"]
+        if not torch.equal(random["rows"], cb6):
+            raise RuntimeError("the runner's random rows are not phase 6's")
+
+        grid = probe_budget_grid(NT, NR)
+        out, calls, wall, counts = run_campaign(
+            "TestbedRunner.estimate", lambda: runner.estimate(
+                "random", "a2only"))
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        if len(calls) != len(grid):
+            raise RuntimeError(f"estimate ran {len(calls)} solves for "
+                               f"{len(grid)} grid points")
+        for i, (m_cur, call) in enumerate(zip(grid, calls)):
+            db = proj_nmse_db(campaign_estimate(out, i), x_np)
+            if not np.isfinite(out.h_amp[i]).all() or call["k5"] <= 0:
+                raise RuntimeError(f"estimate M {m_cur}: non-finite "
+                                   f"estimate or no K5 launch")
+            print(f"[9 a2only] M {m_cur}: {call['s']:.3f} s | trips "
+                  f"{call['trips']} | K5 launches {call['k5']} | quality "
+                  f"{call['quality']:.6f} | NMSE {db:.2f} dB", flush=True)
+        print(f"[9 a2only] TestbedRunner.estimate('random', 'a2only') "
+              f"{NT}x{NR}, {len(random['rss_dbm'])} probe rows, grid {grid}: "
+              f"{wall:.2f} s | trips {admm.infer_admm.trips} | launches "
+              f"{counts}", flush=True)
+
+        est = torch.as_tensor(campaign_estimate(out, len(grid) - 1))
+        x_c = x_true.to(torch.complex128)
+        bf = runner.beamforming_comparison({"a2only": est, "true": x_c})
+        rss, tx_bits, _ = runner.evaluate_codebook_rss(
+            torch.stack([est, x_c.cpu()]), aco_bits=aco)
+        print(f"[9 beams] beamforming_comparison (dBm): a2only "
+              f"{bf['a2only']:.4f}, true channel {bf['true']:.4f} | "
+              f"evaluation codebook, {len(rss)} beams (2 SVD, ACO, "
+              f"{len(rss) - 3} probes): a2only {rss[0]:.4f}, true "
+              f"{rss[1]:.4f}, ACO {rss[2]:.4f}, probes median "
+              f"{np.median(rss[3:]):.4f} dBm", flush=True)
+        if not (np.isfinite(rss).all() and tx_bits.shape == (len(rss), NT)
+                and bf["a2only"] >= bf["true"] - BF_DB_GAP
+                and rss[0] >= rss[1] - BF_DB_GAP):
+            raise RuntimeError(f"the estimate's SVD beam is more than "
+                               f"{BF_DB_GAP} dB below the true channel's")
+
+        prov2 = SyntheticProvider(vec_h=x_true, generator=torch.Generator()
+                                  .manual_seed(CAMPAIGN_SEED + 1))
+        t0 = time.perf_counter()
+        again = TestbedRunner(tcfg, prov2, generator=torch.Generator()
+                              .manual_seed(CAMPAIGN_SEED)
+                              ).run_random_campaign().results["random"]
+        sec = time.perf_counter() - t0
+        same = np.array_equal(again["rss_dbm"], random["rss_dbm"])
+        print(f"[9 resume] a second runner on the same checkpoint_dir: "
+              f"random campaign {sec:.3f} s, {prov2._calls} provider calls, "
+              f"RSS bit-identical {same}", flush=True)
+        if prov2._calls != 0 or not same \
+                or not torch.equal(again["rows"], random["rows"]):
+            raise RuntimeError("the resumed campaign is not the stored one")
+
+    from twoace_tpu_torch.sensing.tcp_provider import (ServerProcess,
+                                                       TcpProvider,
+                                                       build_server)
+    t0 = time.perf_counter()
+    build_server()
+    t_build = time.perf_counter() - t0
+    with ServerProcess() as srv:
+        tcp = TcpProvider(port=srv.port)
+        try:
+            tcp.set_channel(x_true)
+            tcp.set_noise(0.0)
+            t0 = time.perf_counter()
+            part = TestbedRunner(
+                TestbedConfig(array=cfg, n_random_rounds=TCP_ROUNDS), tcp,
+                generator=torch.Generator().manual_seed(CAMPAIGN_SEED)
+            ).run_random_campaign().results["random"]
+            sec = time.perf_counter() - t0
+        finally:
+            tcp.close()
+    clean = SyntheticProvider(vec_h=x_true, noise_dbm_std=0.0,
+                              quantize_rssi=False).measure(part["rows"])
+    want = np.clip(clean, RSSI_OFFSET, RSSI_OFFSET + 1000 * RSSI_SLOPE)
+    err = float(np.abs(part["rss_dbm"] - want).max())
+    rows_same = torch.equal(part["rows"],
+                            random["rows"].reshape(CAMPAIGN_SECTORS,
+                                                   CAMPAIGN_ROUNDS, N)
+                            [:, :TCP_ROUNDS].reshape(-1, N))
+    print(f"[9 tcp] native/rss_server built in {t_build:.2f} s; "
+          f"TcpProvider, random rounds 0-{TCP_ROUNDS - 1} "
+          f"({len(part['rss_dbm'])} rows, the first runner's rows "
+          f"{rows_same}): {sec:.3f} s | max |RSS - noiseless| {err:.4f} dB "
+          f"(tol {TCP_ATOL:.4f})", flush=True)
+    if not (rows_same and err <= TCP_ATOL):
+        raise RuntimeError("the TCP rounds do not hold")
+    return totals
+
+
+def zfree_inputs(device="cuda", dtype=torch.float32):
+    """Phase 9's Z-free solve: a (1, 1024, 256) codebook block, the b of
+    ZFREE_LANES of phase 3's channels and a spectral init (drawn on the
+    CPU in float32), on ``device`` in ``dtype``."""
+    a, b, _ = build_solve_problem(batch=ZFREE_LANES)
+    a_cpu = interop.pair_from_numpy(a[None], None, device="cpu")
+    b_cpu = torch.tensor(b[None], dtype=torch.float32)
+    x0 = pair_solver.spectral_initialize_pair(
+        a_cpu, b_cpu, R, torch.Generator().manual_seed(0))
+    return tuple(Pair(p.re.to(device, dtype), p.im.to(device, dtype))
+                 if isinstance(p, Pair) else p.to(device, dtype)
+                 for p in (a_cpu, b_cpu, x0))
+
+
+def zfree_dist(x, ref):
+    """Max over lanes of |P - P_ref| / max |P_ref|, P = sum_k x_k x_k^H the
+    (r, n) iterate's Gram, which no gauge of the fit (a unitary mix of
+    its rows) moves."""
+    def gram(p):
+        z = torch.complex(p.re.double(), p.im.double()).cpu()
+        return z.mT @ z.conj()
+    g, g_ref = gram(x), gram(ref)
+    return float(((g - g_ref).abs().amax(dim=(-2, -1))
+                  / g_ref.abs().amax(dim=(-2, -1))).max())
+
+
+def phase9_zfree():
+    """One Z-free ``infer_admm_pair`` (no ladder: K4 and K1, no Z-prox) at
+    16x16, m 1024, ZFREE_LANES lanes, on the card and on the CPU."""
+    kw = dict(scale_by_row=True, nt=NT, nr=NR, maxiter=500)
+    args = zfree_inputs()
+    pair_solver.infer_admm_pair(*args, **kw)               # warm-up
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    x, _, conv, it = pair_solver.infer_admm_pair(*args, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = launch_counts()
+    require_launched(counts, ("pair_matmul", "fused_prox_dual_t"),
+                     "the Z-free infer_admm_pair")
+    x_c, _, _, it_c = pair_solver.infer_admm_pair(*zfree_inputs("cpu"), **kw)
+    dist = zfree_dist(x, x_c)
+    print(f"[9 zfree] infer_admm_pair without a ladder, 16x16, m {M}, "
+          f"{ZFREE_LANES} lanes, r {R}: {sec:.3f} s | trips "
+          f"{it.flatten().tolist()} (CPU {it_c.flatten().tolist()}) | "
+          f"converged {conv.flatten().tolist()} | Gram {dist:.3e} from the "
+          f"CPU's (tol {ZFREE_RTOL}) | launches {counts}", flush=True)
+    if not (dist <= ZFREE_RTOL and counts["fused_zprox_t"] == 0):
+        raise RuntimeError("the Z-free branch: card against CPU "
+                           f"{dist:.3e}, or K2 launched")
+    return counts
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -2283,8 +2719,13 @@ def main():
     vssr_cpu = start_vssr_a2_cpu()
     add(phase7_vsm())
     done(7)
+    # the VS_SR child is done by now (about 150 s of CPU since phase 7
+    # began): the Bayes child takes its cores for phase 8
+    bayes = start_bayes_cpu()
     add(phase8_new_paths(vssr_cpu))
     done(8)
+    add(phase9_testbed(bayes))
+    done(9)
     sources = {"fused_prox_dual_t": ("twoace_tpu_torch/csrc/prox_dual.cu",
                                      "twoace_tpu/ops/pallas/kernels.py:121"),
                "fused_zprox_t": ("twoace_tpu_torch/csrc/zprox.cu",

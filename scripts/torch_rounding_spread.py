@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""How far runs of phase 8's paths part when only their rounding differs,
-on the CPU: the spreads behind ``chip_smoke.py``'s phase-8 tolerances.
+"""How far runs of phase 8's and 9's paths part when only their rounding
+differs, on the CPU: the spreads behind ``chip_smoke.py``'s tolerances.
 
-    python3 scripts/torch_rounding_spread.py [vssr|baselines|windows|k3 ...]
+    python3 scripts/torch_rounding_spread.py [vssr|baselines|windows|k3|zfree ...]
         [--ranges 20 50 70 80]
 
 - ``vssr``: the VS_SR campaign's A2 alone (``chip_smoke.vssr_config``,
@@ -20,7 +20,11 @@ on the CPU: the spreads behind ``chip_smoke.py``'s phase-8 tolerances.
   a 1024-row window (``WINDOW_*``);
 - ``k3``: the plain K3 loop in float32 against float64 from phase 2's
   warm state after K3_TRIPS and K3_COLUMN_TRIPS trips, at each of
-  ``K3_COLUMN_CASES`` (both passes).
+  ``K3_COLUMN_CASES`` (both passes);
+- ``zfree``: phase 9's Z-free ``infer_admm_pair`` (``chip_smoke.
+  zfree_inputs``), float32 against float64 and against float32 after a
+  1e-7 perturbation of b, by ``chip_smoke.zfree_dist`` and by the plain
+  max |difference| (``ZFREE_RTOL``).
 
 Everything runs on the CPU (a few minutes each; ``vssr`` about 20 s a
 range).
@@ -148,6 +152,25 @@ def k3():
                   f"{dist[1]:.3e}", flush=True)
 
 
+def zfree():
+    kw = dict(scale_by_row=True, nt=cs.NT, nr=cs.NR, maxiter=500)
+    a, b, x0 = cs.zfree_inputs("cpu")
+    base = pair_solver.infer_admm_pair(a, b, x0, **kw)
+    runs = {"float64": pair_solver.infer_admm_pair(
+                *cs.zfree_inputs("cpu", torch.float64), **kw),
+            "b perturbed 1e-7": pair_solver.infer_admm_pair(
+                a, perturbed(b, 1e-7, torch.Generator().manual_seed(1)), x0,
+                **kw)}
+    for label, run in runs.items():
+        plain = float(max((g.double() - w.double()).abs().max()
+                          / w.double().abs().max()
+                          for g, w in zip(base[0], run[0])))
+        print(f"[zfree] float32 against {label}: Gram "
+              f"{cs.zfree_dist(base[0], run[0]):.3e}, iterate {plain:.3e} | "
+              f"trips {base[3].flatten().tolist()} against "
+              f"{run[3].flatten().tolist()}", flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("parts", nargs="*",
@@ -159,7 +182,8 @@ def main():
         if part == "vssr":
             vssr(args.ranges)
         else:
-            {"baselines": baselines, "windows": windows, "k3": k3}[part]()
+            {"baselines": baselines, "windows": windows, "k3": k3,
+             "zfree": zfree}[part]()
 
 
 if __name__ == "__main__":

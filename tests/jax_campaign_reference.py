@@ -1,5 +1,7 @@
 """The JAX package's own testbed campaign on chip_smoke.py's phase-6
-inputs, on the CPU: the reference the port's per-point NMSE there is read
+inputs, on the CPU: the reference the port's per-point NMSE of phase 9's
+grid (the testbed driver's random campaign, on the same rows; its RSS
+is measured a round at a time, so its jitter is drawn otherwise) is read
 against.
 
     python3 tests/jax_campaign_reference.py

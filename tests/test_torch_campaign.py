@@ -132,11 +132,17 @@ def test_synthetic_provider_jitter_and_faults():
 
 
 def test_pick_beams():
+    """The Random_Phase_State pick takes the first rows; Bayes_Beam (which
+    raised before bayes_opt was ported) picks M distinct rows of the
+    codebook (held against JAX in test_torch_sensing.py)."""
     cb = torch.zeros(10, 3)
     assert torch.equal(pick_beams(None, "Random_Phase_State", 4, cb),
                        torch.arange(4))
-    with pytest.raises(NotImplementedError, match="bayes_opt"):
-        pick_beams(None, "Bayes_Beam", 4, cb)
+    rows = torch.polar(torch.ones(10, 3), torch.linspace(0, 6, 30)
+                       .reshape(10, 3) ** 2)
+    idx = pick_beams(torch.Generator().manual_seed(0), "Bayes_Beam", 4, rows)
+    assert idx.shape == (4,) and 0 <= int(idx.min()) \
+        and int(idx.max()) < 10
     with pytest.raises(ValueError, match="unknown"):
         pick_beams(None, "Sweep", 4, cb)
 

@@ -100,7 +100,16 @@ def test_port_imports_no_jax():
             "twoace_tpu_torch.ops.pair_solver, "
             "twoace_tpu_torch.pipeline, twoace_tpu_torch.sensing, "
             "twoace_tpu_torch.ops.dispatch, "
-            "twoace_tpu_torch.utils.metrics; "
+            "twoace_tpu_torch.utils.metrics, twoace_tpu_torch.cli, "
+            "twoace_tpu_torch.__main__, "
+            "twoace_tpu_torch.sensing.tcp_provider, "
+            "twoace_tpu_torch.sensing.brd, "
+            "twoace_tpu_torch.sensing.bayes_opt, "
+            "twoace_tpu_torch.sensing.grouping, "
+            "twoace_tpu_torch.pipeline.testbed, "
+            "twoace_tpu_torch.utils.checkpoint, "
+            "twoace_tpu_torch.utils.spectral_analysis, "
+            "twoace_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('twoace_tpu.')]; "
             "assert not bad, bad")

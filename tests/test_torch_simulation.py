@@ -4,9 +4,10 @@ sparse and angle metrics, ``pipeline/simulation.py``.
 
 Random draws differ between the packages (``jax.random`` keys against
 ``torch.Generator``s), so the port's draw helpers are handed JAX's draws
-where a function is held to JAX's value; whole sweeps, which draw their
-own channels, are held to JAX's curves within 3 dB.  Deterministic parts
-are compared at complex128 (the conftest enables x64) to 1e-10.
+where a function is held to JAX's value; whole sweeps, handed the draws
+JAX's own sweep makes (its A2 and noisy-phase CS still draw their own),
+are held to JAX's curves within 3 dB.  Deterministic parts are compared
+at complex128 (the conftest enables x64) to 1e-10.
 """
 
 import dataclasses
@@ -188,11 +189,16 @@ def test_random_phase_state_sensing_matches_jax_given_its_bits(monkeypatch):
 
 
 def test_unported_sensing_modes_and_methods_raise():
+    """The four sensing modes that raised before they were ported now run
+    (each is held against JAX in test_torch_sensing.py); unknown modes,
+    missing ranges and an unknown impl still raise ValueError."""
     ad = torch.zeros(16, 4, dtype=torch.complex64)
-    for mode in tsm.UNPORTED_MODES:
-        with pytest.raises(NotImplementedError, match=mode):
-            tsm.generate_sensing_matrix(None, mode, 2, 2, ARR_T, ad,
-                                        (-30, 30), (-30, 30))
+    for mode in ("Directional_Beam", "Directional_Random_Beam",
+                 "Region_Random_Beam", "Random_Beam_Bayes"):
+        sm = tsm.generate_sensing_matrix(torch.Generator().manual_seed(0),
+                                         mode, 2, 2, ARR_T, ad, (-30, 30),
+                                         (-30, 30), batch=2)
+        assert sm.fw.shape == (2, 4, 16) and sm.fw.abs().gt(0).all()
     with pytest.raises(ValueError, match="unknown sensing"):
         tsm.generate_sensing_matrix(None, "Nope", 2, 2, ARR_T, ad)
     with pytest.raises(ValueError, match="aod_range"):
@@ -246,6 +252,41 @@ def test_angle_metrics_match_jax_with_ties():
                                                 jnp.asarray(ad), 3))
 
 
+def _port_draws(ch, rep, sensing, meas):
+    """JAX's draws of a cell as the port's tensors."""
+    return (tch.Channel(*(_t(v) for v in ch)),
+            tsp.SparseRepresentation(*(v if isinstance(v, np.ndarray)
+                                       else _t(v) for v in rep)),
+            tsm.SensingMatrix(*(_t(v) for v in sensing)),
+            tmeas.Measurements(*(_t(v) for v in meas)))
+
+
+def _feed_jax_cells(monkeypatch):
+    """Record the draws of JAX's sweep as it makes them (its _one_cell
+    calls these four, simulation.py:232-248) and hand them to the port's
+    sweep, cell by cell.  Returns the queue of recorded cells, empty once
+    the port's sweep has drawn every one."""
+    queue, parts = [], []
+
+    def record(name):
+        fn = getattr(jsim, name)
+
+        def wrapper(*a, **k):
+            out = fn(*a, **k)
+            parts.append(out)
+            if len(parts) == 4:
+                queue.append(_port_draws(*parts))
+                parts.clear()
+            return out
+        return wrapper
+
+    for name in ("generate_channel", "sparse_formulation",
+                 "generate_sensing_matrix", "generate_measurement"):
+        monkeypatch.setattr(jsim, name, record(name))
+    monkeypatch.setattr(tsim, "draw_cell", lambda *a, **k: queue.pop(0))
+    return queue
+
+
 def _jax_cell(seed, m, trials=2, snr_db=20.0):
     """A 4x4 Random_Phase_State cell drawn by JAX, in complex128."""
     key = jax.random.PRNGKey(seed)
@@ -259,12 +300,8 @@ def _jax_cell(seed, m, trials=2, snr_db=20.0):
                                measurement_mat=sensing.measurement_mat.astype(
                                    jnp.complex128))
     meas = jmeas.generate_measurement(ks[2], sensing.fw, ch.vec_h, snr_db)
-    port = (tch.Channel(*(_t(v) for v in ch)),
-            tsp.SparseRepresentation(*(v if isinstance(v, np.ndarray)
-                                       else _t(v) for v in rep)),
-            tsm.SensingMatrix(*(_t(v) for v in sensing)),
-            tmeas.Measurements(*(_t(v) for v in meas)))
-    return (ch, rep, sensing, meas), port, ks[3]
+    return ((ch, rep, sensing, meas), _port_draws(ch, rep, sensing, meas),
+            ks[3])
 
 
 CELL_METHODS = dict(admm_lowrank_v4=True, phaselift=True, plomp=True,
@@ -289,24 +326,32 @@ def _sims(**kw):
     return out
 
 
-@pytest.mark.parametrize("impl", ["complex", "pair"])
-def test_recover_all_and_evaluate_match_jax_on_its_cell(impl):
-    """JAX's 4x4 cell (2 paths, 2 trials, M 48, SNR 20) through both
-    packages' _recover_all and _evaluate.  The sparse baselines draw
-    nothing and match to 1e-8 of the largest NMSE; the A2 solves draw
-    their own splits and inits, so A2 is held within 1 dB above -60 dB;
-    the Burer-Monteiro PhaseLift amplifies rounding about 1e3-fold every
-    40 trips, so its 4000-trip answer is held within 1 dB too."""
+@pytest.fixture(scope="module")
+def jax_cell():
+    """JAX's 4x4 cell (2 paths, 2 trials, M 48, SNR 20), its _recover_all
+    (complex) and _evaluate, shared by both impls' cases."""
     (ch, rep, sensing, meas), port, key = _jax_cell(11, 48)
-    sim_j, sim_t = _sims(impl=impl)
-    want = jsim._recover_all(key, dataclasses.replace(sim_j, impl="complex"),
-                             meas, sensing, rep, ch)
+    sim_j, _ = _sims()
+    want = jsim._recover_all(key, sim_j, meas, sensing, rep, ch)
+    return want, jsim._evaluate(want, rep, ch, sim_j), port
+
+
+@pytest.mark.parametrize("impl", ["complex", "pair"])
+def test_recover_all_and_evaluate_match_jax_on_its_cell(impl, jax_cell):
+    """JAX's 4x4 cell (2 paths, 2 trials, M 48, SNR 20) through both
+    packages' _recover_all and _evaluate (JAX's run once, in complex, for
+    both impls).  The sparse baselines draw nothing and match to 1e-8 of
+    the largest NMSE; the A2 solves draw their own splits and inits, so
+    A2 is held within 1 dB above -60 dB; the Burer-Monteiro PhaseLift
+    amplifies rounding about 1e3-fold every 40 trips, so its 4000-trip
+    answer is held within 1 dB too."""
+    want, (nm_j, ang_j, tr_j), port = jax_cell
+    _, sim_t = _sims(impl=impl)
     got = tsim._recover_all(torch.Generator().manual_seed(0), sim_t,
                             port[3], port[2], port[1], port[0])
     assert sorted(got) == sorted(want) == sorted(
         ["admm_lowrank_v4", "phaselift", "plomp", "plgamp",
          "perfect_phase_cs", "noisy_phase_cs"])
-    nm_j, ang_j, tr_j = jsim._evaluate(want, rep, ch, sim_j)
     nm_t, ang_t, tr_t = tsim._evaluate(got, port[1], port[0], sim_t)
     for name in want:
         db_t, db_j = 10 * np.log10(tr_t[name]), 10 * np.log10(tr_j[name])
@@ -332,29 +377,38 @@ def _curves_close(got, want, tol_db=3.0):
         assert np.all(np.isfinite(got.aoda_err[name]))
 
 
-def test_sweep_measurements_matches_jax_curves():
-    """Vs_M end to end at 4x4 (2 paths, SNR 20, Random_Phase_State, 12
+def test_sweep_measurements_matches_jax_curves(monkeypatch):
+    """Vs_M end to end at 4x4 (2 paths, SNR 20, Random_Phase_State, 3
     trials) at M 4 (fewer probes than unknowns: every method near 0 dB)
-    and M 64 (= 4n, every method resolved): each curve within 3 dB of
-    JAX's, each package drawing its own channels.  A curve is the dB of
-    the mean linear NMSE, which one poor trial moves by several dB (the
-    per-trial spread of PLOMP and PLGAMP is about +-4 dB here): hence 12
-    trials."""
-    sim_j, sim_t = _sims(n_trials=12)
-    want = jsim.sweep_measurements(jax.random.PRNGKey(1), [4, 64], sim_j, 95.0)
+    and M 64 (= 4n, every method resolved), the port handed JAX's draws
+    cell by cell: each curve within 3 dB of JAX's.  A curve is the dB of
+    the mean linear NMSE, which one poor trial moves by several dB when
+    the two packages draw their own channels (the per-trial spread of
+    PLOMP and PLGAMP is about +-4 dB here); on JAX's draws only A2's
+    splits and inits and the noisy-phase CS's phase noise differ."""
+    sim_j, sim_t = _sims(n_trials=3)
+    queue = _feed_jax_cells(monkeypatch)
+    want = jsim.sweep_measurements(jax.random.PRNGKey(1), [4, 64], sim_j,
+                                   95.0)
+    assert len(queue) == 2
     got = tsim.sweep_measurements(torch.Generator().manual_seed(1), [4, 64],
                                   sim_t, 95.0, device="cpu")
+    assert not queue
     _curves_close(got, want)
 
 
-def test_sweep_snr_matches_jax_curves():
-    """Vs_SNR end to end at 4x4, M 64, SNR 10 and 30, 12 trials: each
-    curve within 3 dB of JAX's."""
-    sim_j, sim_t = _sims(n_trials=12,
+def test_sweep_snr_matches_jax_curves(monkeypatch):
+    """Vs_SNR end to end at 4x4, M 64, SNR 10 and 30, 3 trials, the port
+    handed JAX's draws: each curve within 3 dB of JAX's."""
+    sim_j, sim_t = _sims(n_trials=3,
                          methods=dict(admm_lowrank_v4=True, plomp=True))
-    want = jsim.sweep_snr(jax.random.PRNGKey(2), [10.0, 30.0], 64, sim_j, 95.0)
+    queue = _feed_jax_cells(monkeypatch)
+    want = jsim.sweep_snr(jax.random.PRNGKey(2), [10.0, 30.0], 64, sim_j,
+                          95.0)
+    assert len(queue) == 2
     got = tsim.sweep_snr(torch.Generator().manual_seed(2), [10.0, 30.0], 64,
                          sim_t, 95.0, device="cpu")
+    assert not queue
     _curves_close(got, want)
 
 

@@ -8,11 +8,14 @@ solver family (``ops.admm``, ``ops.dispatch``) and the testbed recovery
 campaigns (``pipeline.recovery``); the baselines (``ops.omp``,
 ``ops.gamp``, ``ops.phaselift``, ``ops.twostage``, ``ops.cpr_baselines``,
 ``ops.beamsweep``); six hand-written CUDA kernels (``ops.kernels``); the
-steering, channel, sparse and measurement models (``models``); the
-random and directional codebooks, beam pick and measurement providers
-(``sensing``); the mobility tracker (``pipeline.mobility``); and the
-Monte-Carlo campaigns (``pipeline.simulation``: Vs_M, Vs_SNR, VS_SR, the
-trace sweep and windowed inference).
+steering, channel, sparse and measurement models (``models``); every
+codebook family, the Bayes A-optimal beams, the sensing modes, beam
+picks, codebook images and measurement providers (``sensing``); the
+mobility tracker (``pipeline.mobility``); the Monte-Carlo campaigns
+(``pipeline.simulation``: Vs_M, Vs_SNR, VS_SR, the trace sweep and
+windowed inference); the testbed driver (``pipeline.testbed``); the
+utilities (``utils``); and the CLI (``python -m twoace_tpu_torch``).
+Still to port: ``parallel``, the entry module and ``utils.plotting``.
 """
 
 from . import interop  # noqa: F401

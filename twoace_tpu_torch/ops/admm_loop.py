@@ -4,7 +4,8 @@ One body serves two callers (ref: inferLowRankV4_multi.m:281-386):
 
 - the per-op route of :func:`.pair_solver.infer_admm_pair`, which hands
   it the CUDA kernels K4 (pair GEMM), K1 (magnitude prox + M-dual) and
-  K2 (warm Z-prox), or the nuclear prox;
+  K2 (warm Z-prox), the nuclear prox, or no Z-prox at all (the Z-free
+  branch: K4 and K1 only);
 - the plain version of the loop kernel K3
   (:func:`.kernels.infer_admm.infer_admm_plain`), which hands it K4's,
   K1's and K2's plain versions.
@@ -90,8 +91,9 @@ class _State(NamedTuple):
 PairGemm = Callable
 #: ``prox_dual(ax, b, m_dual, mu, per_entry) -> (y, m_new)`` on lanes
 ProxDual = Callable
-#: ``z_prox(z_in, v_basis, mu) -> (z_new, v_new)`` on lanes
-ZProx = Callable
+#: ``z_prox(z_in, v_basis, mu) -> (z_new, v_new)`` on lanes; None for
+#: the Z-free loop
+ZProx = Optional[Callable]
 
 
 def _contiguous(p: Pair) -> Pair:
@@ -108,7 +110,10 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
     ``a``: (G, m, n); ``b``: (G, P, m); ``u_mat``: (G, n, n), the inverse
     of A^H A + reg I; ``y``/``z``: (G, P, r, m)/(G, P, r, n), the state
     after initialization; ``v_basis``: (G, P, ...) carried by ``z_prox``;
-    ``mu0``: (G, P).  ``anchor``: the proximal anchor's pull
+    ``mu0``: (G, P).  With ``z_prox`` None the loop is Z-free (ref
+    :301-321 with no Z): ``u_mat`` is then (G, m, n), pinv(A)^H, the
+    X-update solves against Y alone, and Z, the N-dual and v_basis stay
+    as given.  ``anchor``: the proximal anchor's pull
     ``anchor_weight * anchor``, broadcastable to (G, P, r, n), added to
     the X-update's right-hand side (U must carry the matching ridge).
 
@@ -156,16 +161,21 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
         opt_x=zeros(g_, p_, k_opt, n), opt_y=zeros(g_, p_, k_opt, m),
         it=full(0, torch.int32), converged=full(False, torch.bool))
 
+    has_z = z_prox is not None
+
     def body(c: _State) -> _State:
         mu = c.mu
         mu4 = mu[..., None, None]
         inv4 = 1.0 / mu4
         # X-update (ref :401-409); the anchor's pull joins the rhs
         t = Pair(c.y.re - c.m_dual.re * inv4, c.y.im - c.m_dual.im * inv4)
-        rhs = add(ah_mul(t), Pair(c.z.re - c.n_dual.re * inv4,
-                                  c.z.im - c.n_dual.im * inv4))
-        if anchor is not None:
-            rhs = add(rhs, anchor)
+        if has_z:
+            rhs = add(ah_mul(t), Pair(c.z.re - c.n_dual.re * inv4,
+                                      c.z.im - c.n_dual.im * inv4))
+            if anchor is not None:
+                rhs = add(rhs, anchor)
+        else:
+            rhs = t                                    # U = pinv(A)^H
         x = gemm(rhs, u_conj, pair_gemm)
         ax = a_mul(x)
         # Y-update fused with the M-dual update (ref :511-533, :336-337)
@@ -173,14 +183,19 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
                                mu.reshape(n_lanes), not scale_by_row)
         yn, m_dual = groups(yn, g_), groups(m_dual, g_)
         aty = ah_mul(yn)
-        # Z-update (ref :423-485)
-        z_in = Pair(x.re + c.n_dual.re * inv4, x.im + c.n_dual.im * inv4)
-        zn, v_new = z_prox(lanes(z_in), lanes(c.v_basis), mu.reshape(n_lanes))
-        zn, v_new = groups(zn, g_), groups(v_new, g_)
-        # N-dual update (ref :336-341)
         j_m = sub(ax, yn)
-        j_n = sub(x, zn)
-        n_dual = Pair(c.n_dual.re + mu4 * j_n.re, c.n_dual.im + mu4 * j_n.im)
+        if has_z:
+            # Z-update (ref :423-485)
+            z_in = Pair(x.re + c.n_dual.re * inv4, x.im + c.n_dual.im * inv4)
+            zn, v_new = z_prox(lanes(z_in), lanes(c.v_basis),
+                               mu.reshape(n_lanes))
+            zn, v_new = groups(zn, g_), groups(v_new, g_)
+            # N-dual update (ref :336-341)
+            j_n = sub(x, zn)
+            n_dual = Pair(c.n_dual.re + mu4 * j_n.re,
+                          c.n_dual.im + mu4 * j_n.im)
+        else:
+            zn, v_new, n_dual = c.z, c.v_basis, c.n_dual
 
         # best-so-far (ref :343-361)
         if scale_by_row:
@@ -207,17 +222,28 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
 
         # convergence tests (ref :363-375)
         nax, ny, naty = norm(ax), norm(yn), norm(aty)
-        nx, nz = norm(x), norm(zn)
-        res_prim = torch.sqrt(fro2(j_m) + fro2(j_n))
-        dz2 = fro2(sub(zn, c.z))
-        res_dual = mu * torch.sqrt(fro2(sub(aty, c.aty)) + dz2)
-        res_comb = torch.sqrt(res_prim ** 2 + fro2(sub(yn, c.y)) + dz2)
-        big = torch.maximum(nax, ny) ** 2 + torch.maximum(nx, nz) ** 2
-        t_prim = tol_abs * math.sqrt((m + n) * r) + tol_rel * torch.sqrt(big)
-        t_dual = (tol_abs * math.sqrt(n * r * 2)
-                  + tol_rel * torch.sqrt(naty ** 2 + nz ** 2))
-        t_comb = (tol_abs * math.sqrt((m + n) * r * 2)
-                  + tol_rel * torch.sqrt(big + ny ** 2 + nz ** 2))
+        if has_z:
+            nx, nz = norm(x), norm(zn)
+            res_prim = torch.sqrt(fro2(j_m) + fro2(j_n))
+            dz2 = fro2(sub(zn, c.z))
+            res_dual = mu * torch.sqrt(fro2(sub(aty, c.aty)) + dz2)
+            res_comb = torch.sqrt(res_prim ** 2 + fro2(sub(yn, c.y)) + dz2)
+            big = torch.maximum(nax, ny) ** 2 + torch.maximum(nx, nz) ** 2
+            t_prim = (tol_abs * math.sqrt((m + n) * r)
+                      + tol_rel * torch.sqrt(big))
+            t_dual = (tol_abs * math.sqrt(n * r * 2)
+                      + tol_rel * torch.sqrt(naty ** 2 + nz ** 2))
+            t_comb = (tol_abs * math.sqrt((m + n) * r * 2)
+                      + tol_rel * torch.sqrt(big + ny ** 2 + nz ** 2))
+        else:
+            res_prim = norm(j_m)
+            res_dual = mu * norm(sub(aty, c.aty))
+            res_comb = torch.sqrt(res_prim ** 2 + fro2(sub(yn, c.y)))
+            big = torch.maximum(nax, ny)
+            t_prim = tol_abs * math.sqrt(m * r) + tol_rel * big
+            t_dual = tol_abs * math.sqrt(n * r) + tol_rel * naty
+            t_comb = (tol_abs * math.sqrt(m * r * 2)
+                      + tol_rel * torch.sqrt(big ** 2 + ny ** 2))
         converged = (((res_prim < t_prim) & (res_dual < t_dual))
                      | (res_comb < t_comb))
         mu = torch.where(res_comb > c.last_res * 0.9, mu * rho, mu)

@@ -19,10 +19,11 @@ Routing of an inner solve on CUDA tensors (:func:`infer_admm_pair`):
 - on the single-recovery path, a spectral-profile solve that is not
   anchored and has no warm trips runs its whole loop in the CUDA kernel
   K3 (:func:`.kernels.fused_infer_admm`), as JAX's megakernel route does;
-- every other solve (anchored, ``warm_iters > 0``, nuclear, and every
-  solve of the batch solver) runs the per-op loop of :mod:`.admm_loop`
-  with the kernels K4 (pair GEMM), K1 (magnitude prox + M-dual) and K2
-  (warm Z-prox), or the nuclear prox in plain torch.
+- every other solve (anchored, ``warm_iters > 0``, nuclear, Z-free, and
+  every solve of the batch solver) runs the per-op loop of
+  :mod:`.admm_loop` with the kernels K4 (pair GEMM), K1 (magnitude prox
+  + M-dual) and K2 (warm Z-prox), the nuclear prox in plain torch, or no
+  Z-prox (the Z-free branch).
 
 No solve on a CUDA tensor falls back to a plain version.  The setup around
 the loop (Cholesky, eigh, QR, the quality gate, the retry gather and
@@ -48,7 +49,8 @@ from .kernels import (fused_infer_admm, fused_prox_dual_t, fused_zprox_t,
 from .prox import profile_ladder_arrays
 
 __all__ = [
-    "PairAdmmResult", "precompute_u_pair", "spectral_initialize_pair",
+    "PairAdmmResult", "precompute_u_pair", "pinv_u_pair",
+    "spectral_initialize_pair",
     "project_cols_to_magnitude", "magnitude_prox_cols_elem",
     "admm_init_pair", "infer_admm_pair", "solve_lowrank_multi_pair_batch",
     "solve_lowrank_multi_pair", "refine_lowrank_pair",
@@ -103,6 +105,14 @@ def precompute_u_pair(a: Pair, reg: float = 1.0) -> Pair:
     c = torch.linalg.cholesky(g)
     w = torch.linalg.solve_triangular(c, eye.expand_as(c), upper=False)
     return from_complex(w.mH @ w)
+
+
+def pinv_u_pair(a: Pair) -> Pair:
+    """U = pinv(A)^H of each (..., m, n) codebook block: the Z-free
+    X-update's operator, ``x = t @ conj(U)`` solving x A^T = t in least
+    squares.  JAX's Z-free branch takes this (m, n) matrix from its caller
+    (``u_mat``)."""
+    return from_complex(torch.linalg.pinv(to_complex(a)).mH.contiguous())
 
 
 def spectral_initialize_pair(a: Pair, b, r: int,
@@ -214,10 +224,12 @@ def admm_init_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool, nt: int,
 
     Scales x0 to the measurements, projects A x0 onto the magnitudes b,
     and seeds the Z-prox: the spectral-profile prox from a cold ``eigh``
-    basis of the initial Gram, the nuclear prox at threshold 1.  Returns
-    ``(y, z, v_basis)``, the state the loop starts from; v_basis is
-    (G, P, nr, nr) in the E-convention (a (G, P, 1, 1) placeholder for the
-    nuclear prox).
+    basis of the initial Gram, the nuclear prox at threshold 1; with no
+    ladder and the spectral-profile kind (the Z-free branch) there is no
+    Z.  Returns ``(y, z, v_basis)``, the state the loop starts from;
+    v_basis is (G, P, nr, nr) in the E-convention (a (G, P, 1, 1)
+    placeholder for the nuclear prox; z and v_basis both are for the
+    Z-free branch).
     """
     g_, p_ = x0.re.shape[:2]
     a_t = transpose(a)
@@ -230,11 +242,11 @@ def admm_init_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool, nt: int,
                                                dim=-1), min=1e-30))
         x = scale(x0, (bn[..., None] / col)[..., None])
     y = project_cols_to_magnitude(gemm(x, a_t), b, scale_by_row)
+    zero = torch.zeros(g_, p_, 1, 1, dtype=torch.float32, device=x.re.device)
     if prox_kind == "nuclear":
-        z = _nuclear_prox_t(x, 1.0)
-        zero = torch.zeros(g_, p_, 1, 1, dtype=torch.float32,
-                           device=x.re.device)
-        return y, z, Pair(zero, zero)
+        return y, _nuclear_prox_t(x, 1.0), Pair(zero, zero)
+    if ladder is None:                                   # the Z-free branch
+        return y, Pair(zero, zero), Pair(zero, zero)
     z, v_basis = (groups(p, g_) for p in zprox_t_plain(
         lanes(x), None, nt, nr, _lane_ladder(ladder, g_, p_)))
     return y, z, v_basis
@@ -254,7 +266,11 @@ def infer_admm_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool,
     ``a``: (G, m, n) codebook blocks; ``b``: (G, P, m); ``x0``:
     (G, P, r, n); ``u_mat``: (G, n, n) = inv(A^H A + I) per block, or None
     to compute it here; ``ladder``: ranks/fracs broadcastable to
-    (G, P, L), None for the nuclear prox.
+    (G, P, L), None for the nuclear prox.  A spectral-profile solve with
+    no ladder is the Z-free branch (JAX's ``has_z`` false): no Z-prox, no
+    N-dual, and ``u_mat`` is the (G, m, n) least-squares operator
+    pinv(A)^H (:func:`pinv_u_pair`, computed here when None); on CUDA it
+    runs the per-op loop with K4 and K1.
 
     ``anchor`` (broadcastable to (G, P, r, n)) with ``anchor_weight > 0``
     adds ``anchor_weight * ||x - anchor||^2`` to the X-subproblem (the
@@ -265,7 +281,8 @@ def infer_admm_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool,
     On CUDA a spectral-profile solve without anchor and warm trips runs
     in the loop kernel K3, unless ``fused_loop`` is False (the batch
     solver's routing, kept on the per-op loop until a measurement decides
-    it); other solves run the per-op loop (K4, K1, K2).  K3 computes its
+    it); other solves run the per-op loop (K4, K1, and K2 where there is
+    a spectral-profile Z).  K3 computes its
     products in 3xTF32 on the tensor cores against constants split once
     per launch, K4 in 3xTF32 tensor-core tiles or split-K on the CUDA
     cores: float32-class either way.
@@ -285,12 +302,10 @@ def infer_admm_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool,
         raise ValueError("anchored solves must not pass a precomputed "
                          "u_mat; the (1 + anchor_weight) ridge is folded "
                          "into U internally")
-    if not has_z:
-        raise NotImplementedError("the Z-free path (no ladder) is not "
-                                  "ported")
     if u_mat is None:
         u_mat = precompute_u_pair(
-            a, reg=1.0 + (anchor_weight if anchored else 0.0))
+            a, reg=1.0 + (anchor_weight if anchored else 0.0)) if has_z \
+            else pinv_u_pair(a)
     g_, p_ = x0.re.shape[:2]
     y, z, v_basis = admm_init_pair(a, b, x0, scale_by_row=scale_by_row,
                                    nt=nt, nr=nr, ladder=ladder,
@@ -299,7 +314,9 @@ def infer_admm_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool,
     kw = dict(scale_by_row=scale_by_row, rho=rho, tol_rel=tol_rel,
               tol_abs=tol_abs, maxiter=maxiter)
 
-    if prox_kind == "spectral_profile":
+    if not has_z:
+        z_prox = None
+    elif prox_kind == "spectral_profile":
         lad = _lane_ladder(ladder, g_, p_)
         if fused_loop and not anchored and warm_iters == 0:
             return fused_infer_admm(

@@ -1,7 +1,6 @@
-"""End-to-end entry points (port of ``twoace_tpu.pipeline``).
-
-Ported so far: ``mobility``, ``recovery`` and ``simulation``.  The
-testbed pipeline is still to port.
+"""End-to-end entry points (port of ``twoace_tpu.pipeline``): the
+mobility tracker, the recovery campaigns, the simulation sweeps and the
+testbed driver (``TestbedRunner``), all of ``twoace_tpu.pipeline``.
 """
 
 from .mobility import (  # noqa: F401
@@ -35,3 +34,4 @@ from .simulation import (  # noqa: F401
     sweep_measurements_trace,
     sweep_snr,
 )
+from .testbed import TestbedConfig, TestbedRunner  # noqa: F401

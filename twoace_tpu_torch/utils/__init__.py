@@ -1,1 +1,2 @@
-"""Metrics of the PyTorch port."""
+"""Utilities of the PyTorch port: metrics, units, random streams, timing,
+profiling, checkpoints and spectral analysis."""
