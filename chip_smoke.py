@@ -2445,16 +2445,17 @@ def phase9_sensing(bayes):
 
 def phase9_testbed(bayes):
     """Phase 9: the testbed driver on the card.  The sensing modes and
-    Bayes selections (:func:`phase9_sensing`); the CLI's testbed command
-    in a subprocess, overlapping the rest; ``TestbedRunner`` at
+    Bayes selections (:func:`phase9_sensing`); one Z-free
+    ``infer_admm_pair`` (K4, K1, no K2); ``TestbedRunner`` at
     TestbedConfig's defaults (16x16) on phase 6's channel through
     ``SyntheticProvider``: its five campaigns, ``estimate("random",
     "a2only")`` over the probe-budget grid (phase 6's checks and lines:
     K5 on every point), ``beamforming_comparison`` and
     ``evaluate_codebook_rss``; a second runner resuming the random
     campaign from the first's checkpoints; the first TCP_ROUNDS random
-    rounds through ``TcpProvider`` and ``native/rss_server``; the CLI
-    with CUDA hidden; one Z-free ``infer_admm_pair`` (K4, K1, no K2)."""
+    rounds through ``TcpProvider`` and ``native/rss_server``.  The CLI's
+    testbed command, on the card and with CUDA hidden, runs in two
+    subprocesses once the grid is timed, beside the steps after it."""
     totals = {}
 
     def add(counts):
@@ -2462,47 +2463,53 @@ def phase9_testbed(bayes):
             totals[k] = totals.get(k, 0) + v
 
     phase9_sensing(bayes)
+    add(phase9_zfree())
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root)
-    t_cli = time.perf_counter()
-    cli = subprocess.Popen([sys.executable, "-m", "twoace_tpu_torch",
-                            *CLI_ARGS], cwd=root, env=env,
-                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                           text=True)
+    procs = {}
+
+    def start_cli():
+        procs["t0"] = time.perf_counter()
+        for name, extra in (("cli", {}), ("hidden",
+                                          {"CUDA_VISIBLE_DEVICES": ""})):
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "twoace_tpu_torch", *CLI_ARGS],
+                cwd=root, env=dict(env, **extra), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+
     try:
-        add(phase9_runner())
-        add(phase9_zfree())
-        out, err = cli.communicate(timeout=CLI_TIMEOUT)
+        add(phase9_runner(start_cli))
+        out, err = procs["cli"].communicate(timeout=CLI_TIMEOUT)
+        sec = time.perf_counter() - procs["t0"]
+        _, hidden_err = procs["hidden"].communicate(timeout=CLI_TIMEOUT)
     finally:
-        if cli.poll() is None:
-            cli.kill()
-            cli.wait()
-    sec = time.perf_counter() - t_cli
-    if cli.returncode != 0:
-        raise RuntimeError(f"the CLI exited {cli.returncode}: {err[-2000:]}")
+        for proc in (procs.get("cli"), procs.get("hidden")):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if procs["cli"].returncode != 0:
+        raise RuntimeError(f"the CLI exited {procs['cli'].returncode}: "
+                           f"{err[-2000:]}")
     res = json.loads(out.strip().splitlines()[-1])
     db = res["nmse_db_final"]
     print(f"[9 cli] python -m twoace_tpu_torch {' '.join(CLI_ARGS)}: exit 0 "
-          f"after {sec:.1f} s (beside the runner) | {json.dumps(res)}",
+          f"after {sec:.1f} s (started after the grid) | {json.dumps(res)}",
           flush=True)
     if db is None or not (np.isfinite(db) and db < CLI_NMSE_DB):
         raise RuntimeError(f"the CLI's nmse_db_final {db} is not below "
                            f"{CLI_NMSE_DB} dB")
-    hidden = subprocess.run([sys.executable, "-m", "twoace_tpu_torch",
-                             *CLI_ARGS], cwd=root,
-                            env=dict(env, CUDA_VISIBLE_DEVICES=""),
-                            capture_output=True, text=True, timeout=300)
-    last = (hidden.stderr.strip().splitlines() or [""])[-1]
-    print(f"[9 cli] with CUDA hidden: exit {hidden.returncode} | {last}",
-          flush=True)
-    if hidden.returncode == 0:
+    hidden = procs["hidden"].returncode
+    last = (hidden_err.strip().splitlines() or [""])[-1]
+    print(f"[9 cli] with CUDA hidden: exit {hidden} | {last}", flush=True)
+    if hidden == 0:
         raise RuntimeError("the CLI exited 0 with CUDA hidden")
     return totals
 
 
-def phase9_runner():
+def phase9_runner(after_grid):
     """``TestbedRunner`` on phase 6's channel (see
-    :func:`phase9_testbed`)."""
+    :func:`phase9_testbed`); calls ``after_grid()`` once the estimation
+    grid is timed."""
     cb6, x_true, _, _ = campaign_workload()
     x_np = x_true.cpu().numpy()
     cfg = ArrayConfig(nt=NT, nr=NR)
@@ -2567,6 +2574,7 @@ def phase9_runner():
               f"{NT}x{NR}, {len(random['rss_dbm'])} probe rows, grid {grid}: "
               f"{wall:.2f} s | trips {admm.infer_admm.trips} | launches "
               f"{counts}", flush=True)
+        after_grid()
 
         est = torch.as_tensor(campaign_estimate(out, len(grid) - 1))
         x_c = x_true.to(torch.complex128)

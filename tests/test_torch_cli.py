@@ -5,19 +5,23 @@ Each command's parser takes JAX's flags with JAX's defaults, except that
 ``--device`` (default ``cuda``) stands where JAX has ``--platform``.
 ``testbed`` and ``recover`` run in-process in both packages at 4x4 with
 ``--device cpu`` (no subprocess: each would pay a fresh ``torch``
-import), at one probe budget (JAX's solve stubbed: no compile), and
-print the same JSON keys.  The simulation commands run in the port at
+import), at one probe budget (JAX's channel, campaign and solve
+stubbed: no compile), and print the same JSON keys.  The simulation commands run in the port at
 the smallest sizes and print JAX's keys.
 """
 
 import json
+from types import SimpleNamespace
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from twoace_tpu import cli as jcli
+from twoace_tpu import models as jmodels
 from twoace_tpu.pipeline import recovery as jrec
+from twoace_tpu.pipeline import testbed as jtb
 from twoace_tpu_torch import cli as tcli
 from twoace_tpu_torch.pipeline import recovery as trec
 
@@ -53,12 +57,26 @@ def test_parsers_match_jax():
 @pytest.fixture
 def one_budget(monkeypatch):
     """Both packages' recovery grids cut to the one budget M 16, and JAX's
-    campaign solves stubbed by zero estimates of their shape: the keys
-    are the CLI's, and JAX's solver is held to the port's elsewhere
-    (test_torch_testbed.py, test_torch_campaign.py) without a compile
-    here."""
+    channel draw, random campaign and campaign solves stubbed by arrays
+    of their shapes: JAX's CLI only has to print its keys, and its
+    campaign and solver are held to the port's elsewhere
+    (test_torch_testbed.py, test_torch_campaign.py) without their
+    compiles here.  The port's commands run for real."""
     for mod in (jrec, trec):
         monkeypatch.setattr(mod, "probe_budget_grid", lambda nt, nr: (16,))
+
+    def channel(key, cfg, ch_cfg, batch=1):
+        return SimpleNamespace(vec_h=jnp.ones((batch, cfg.n), jnp.complex64))
+
+    def campaign(self):
+        rows = self.cfg.n_random_rounds * self.cfg.sectors_per_round
+        self.results["random"] = {
+            "rows": np.ones((rows, self.cfg.array.n), np.complex64),
+            "rss_dbm": np.zeros(rows)}
+        return self
+
+    monkeypatch.setattr(jmodels, "generate_channel", channel)
+    monkeypatch.setattr(jtb.TestbedRunner, "run_random_campaign", campaign)
 
     def stub(cb_rows, rss_dbm, methods, cc=jrec.CampaignConfig(), seed_id=1,
              m_grid=None, nuclear=False):

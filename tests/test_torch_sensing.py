@@ -6,10 +6,12 @@ against the JAX package's, on the CPU.
 Both packages get the same numpy inputs.  Where a function draws, the
 port is handed JAX's draw: the random-gain beams' numpy seed, the
 multires tiers' group bits, the selection's initial design.  With those,
-the host-numpy families agree exactly and the Bayes selection picks the
-same indices in complex128 (its float32 picks may part at near-ties).
-JAX jits ``bayes_a_opt_select`` once per shape, so the selections here
-use few, small shapes (C <= 256, n <= 16).
+the host-numpy families agree exactly.  The Bayes exchange picks JAX's
+indices in complex128 on real rows, and a plain exchange's (every swap
+re-inverted) on complex rows; the sensing modes and beam builders are
+held to JAX's given one selection.  JAX jits ``bayes_a_opt_select``
+once per shape, so the selections here use few, small shapes (C <= 256,
+n <= 16).
 """
 
 import math
@@ -43,6 +45,15 @@ ARR_T = tcfg.ArrayConfig(nt=NT, nr=NR)
 
 def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _jax(fn):
+    """Run a JAX reference call, ``fn()``, under one ``jax.jit``: one XLA
+    compile in place of one per eager op (each costs a tenth of a second
+    on the CPU).  Calls that read a traced value on the host run eagerly."""
+    out = jax.jit(fn)()
+    jax.effects_barrier()
+    return out
 
 
 def _jax_seed(key):
@@ -126,13 +137,14 @@ def test_sweep_multires_aco_codebooks_match_jax():
     ACO masks: the same bits and rows."""
     cfg_t, cfg_j = tcfg.ArrayConfig(nt=16, nr=16), jcfg.ArrayConfig(16, 16)
     for got, want in ((tcb.sweep_codebook_2d(cfg_t, 6, 6, device="cpu"),
-                       jcb.sweep_codebook_2d(cfg_j, 6, 6)),
+                       lambda: jcb.sweep_codebook_2d(cfg_j, 6, 6)),
                       (tcb.sweep_codebook(cfg_t, 32, device="cpu"),
-                       jcb.sweep_codebook(cfg_j, 32)),
+                       lambda: jcb.sweep_codebook(cfg_j, 32)),
                       (tcb.aco_sweep_codebook(NT, ref_bit=1, device="cpu"),
-                       jcb.aco_sweep_codebook(NT, ref_bit=1))):
-        np.testing.assert_array_equal(_np(got.bits), np.asarray(want.bits))
-        np.testing.assert_allclose(_np(got.rows()), np.asarray(want.rows()),
+                       lambda: jcb.aco_sweep_codebook(NT, ref_bit=1))):
+        bits, rows = _jax(lambda: (want().bits, want().rows()))
+        np.testing.assert_array_equal(_np(got.bits), np.asarray(bits))
+        np.testing.assert_allclose(_np(got.rows()), np.asarray(rows),
                                    atol=1e-6)
     assert tcb.default_groupings(6) == jcb.default_groupings(6)
     key, rounds = jax.random.PRNGKey(4), (3, 4, 5)
@@ -159,11 +171,11 @@ def test_aco_csi_and_conj_bits_match_jax():
     rng = np.random.default_rng(2)
     rss = rng.uniform(0.1, 2.0, NT * 4)
     csi_t = tcb.rss_to_csi(torch.tensor(rss), NT)
-    csi_j = np.asarray(jcb.rss_to_csi(jnp.asarray(rss), NT))
+    csi_j = np.asarray(_jax(lambda: jcb.rss_to_csi(jnp.asarray(rss), NT)))
     np.testing.assert_allclose(_np(csi_t), csi_j, atol=1e-12)
-    np.testing.assert_array_equal(_np(tcb.conj_phase_bits(csi_t)),
-                                  np.asarray(jcb.conj_phase_bits(
-                                      jnp.asarray(csi_j))))
+    np.testing.assert_array_equal(
+        _np(tcb.conj_phase_bits(csi_t)),
+        np.asarray(_jax(lambda: jcb.conj_phase_bits(jnp.asarray(csi_j)))))
 
 
 def _gain(h, wt_bits, wr_bits):
@@ -183,8 +195,8 @@ def test_svd_beamformer_and_evaluation_codebook_match_jax():
     for c in (None, comp):
         bt = tcb.svd_beamformer_bits(torch.tensor(h, dtype=torch.complex64),
                                      compensation=c)
-        bj = jcb.svd_beamformer_bits(jnp.asarray(h, jnp.complex64),
-                                     compensation=c)
+        bj = _jax(lambda: jcb.svd_beamformer_bits(
+            jnp.asarray(h, jnp.complex64), compensation=c))
         np.testing.assert_allclose(_gain(h, *bt), _gain(h, *bj), rtol=1e-5)
     aco = (np.arange(NT) % 4, np.arange(NR)[::-1] % 4)
     h2 = _channel(1)[1]
@@ -193,10 +205,10 @@ def test_svd_beamformer_and_evaluation_codebook_match_jax():
         torch.Generator().manual_seed(0), torch.tensor(est),
         h_directional=torch.tensor(h2.astype(np.complex64)),
         wt_aco_bits=aco[0], wr_aco_bits=aco[1], nt=NT, nr=NR, n_probe=5)
-    tx_j, rx_j = jcb.evaluation_codebook(
+    tx_j, rx_j = _jax(lambda: jcb.evaluation_codebook(
         jax.random.PRNGKey(0), jnp.asarray(est),
         h_directional=jnp.asarray(h2.astype(np.complex64)),
-        wt_aco_bits=aco[0], wr_aco_bits=aco[1], nt=NT, nr=NR, n_probe=5)
+        wt_aco_bits=aco[0], wr_aco_bits=aco[1], nt=NT, nr=NR, n_probe=5))
     assert tx_t.shape == tx_j.shape == (9, NT) and rx_t.shape == (9, NR)
     for i, hh in enumerate((vec, h2, h2)):
         np.testing.assert_allclose(
@@ -215,33 +227,112 @@ def _bayes_inputs(seed, c, n, dtype=np.complex128, phases=4):
     return (cand / np.sqrt(n)).astype(dtype)
 
 
-def _jax_select(monkeypatch, init):
-    """Hand the port's selection JAX's initial design and starting matrix
-    wherever a sensing-matrix builder calls it."""
-    monkeypatch.setattr(tsm, "bayes_a_opt_select",
-                        lambda *a, **k: tbo.bayes_a_opt_select(
-                            *a, initial=init, jax_gram=True, **k))
+def _one_selection(monkeypatch):
+    """Hand both packages' sensing-matrix builders one selection, the
+    first M candidates, so the builders are held to JAX's given the same
+    selection (the exchange itself is held to the plain exchange and to
+    JAX's below, without a JAX compile per builder shape).  Returns what
+    each package handed its selection: ``seen[tag] = (candidates, prior
+    or None, m)``."""
+    seen = {}
+
+    def on_jax(key, cand, m, prior_k=None):
+        # a callback: the builders run under jax.jit
+        jax.debug.callback(lambda c, *p: seen.update(jax=(
+            np.asarray(c), np.asarray(p[0]) if p else None, m)),
+            cand, *(() if prior_k is None else (prior_k,)), ordered=True)
+        return jnp.arange(m)
+
+    def on_torch(generator, cand, m, prior_k=None):
+        seen["torch"] = (_np(cand), None if prior_k is None
+                         else _np(prior_k), m)
+        return torch.arange(m)
+
+    monkeypatch.setattr(jsm, "bayes_a_opt_select", on_jax)
+    monkeypatch.setattr(tsm, "bayes_a_opt_select", on_torch)
+    return seen
+
+
+def _same_selection_inputs(seen, rtol=1e-5, atol=1e-6):
+    for got, want in zip(seen["torch"], seen["jax"]):
+        if want is None or np.isscalar(want):
+            assert got == want
+        else:
+            np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+
+
+def _plain_exchange(cand, m, init, prior=None, weight=None, sweeps=2):
+    """The A-optimal exchange with no algebra (complex128 numpy): for each
+    slot, every candidate's swap re-inverts ``X^H X + K_u`` and takes
+    ``sum_u Re trace(A inv(.))``; the best swap is kept under the same
+    rule (the first sweep always, later ones below -sqrt(eps))."""
+    n = cand.shape[1]
+    prior = np.eye(n)[None] if prior is None else np.asarray(prior)
+    weight = np.eye(n) if weight is None else np.asarray(weight)
+    acutoff = -np.sqrt(np.finfo(np.float64).eps)
+
+    def crit(rows):
+        x = cand[rows]
+        return sum(np.trace(weight @ np.linalg.inv(x.conj().T @ x + k)).real
+                   for k in prior)
+
+    rows = list(np.asarray(init))
+    for i in range(sweeps * m):
+        slot = i % m
+        now = crit(rows)
+        delta = np.array([crit(rows[:slot] + [c] + rows[slot + 1:])
+                          for c in range(len(cand))]) - now
+        idx = int(np.argmin(delta))
+        if i < m or delta[idx] < acutoff:
+            rows[slot] = idx
+    return np.array(rows)
+
+
+def _hermitian_pd(rng, n, floor):
+    g = rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n))
+    return g @ g.conj().T / n + floor * np.eye(n)
+
+
+@pytest.mark.parametrize("case", ["one_user", "weighted_users",
+                                  "complex_prior"])
+def test_bayes_select_matches_plain_exchange(case):
+    """The exchange's Sherman-Morrison algebra against the plain exchange
+    in complex128, C 40, m 6, n 8, the same indices: one user with K = I
+    (the default every sensing mode uses); two users with Hermitian
+    (non-diagonal, complex) priors and a complex Hermitian weight A; two
+    users with the complex diagonal noise prior of
+    ``noise_prior_from_vech`` (not Hermitian, as directional_beam_bayes
+    builds it)."""
+    cand = _bayes_inputs(11, 40, 8)
+    rng = np.random.default_rng(12)
+    init = rng.integers(0, 40, 6)
+    prior = weight = None
+    if case == "weighted_users":
+        prior = np.stack([_hermitian_pd(rng, 8, 0.5) for _ in range(2)])
+        weight = _hermitian_pd(rng, 8, 0.2)
+    elif case == "complex_prior":
+        vh = rng.uniform(0.5, 2.0, (2, 8)) * np.exp(
+            1j * rng.uniform(-1.0, 1.0, (2, 8)))
+        prior = _np(tbo.noise_prior_from_vech(torch.tensor(vh), 0.0))
+    want = _plain_exchange(cand, 6, init, prior, weight)
+    got = tbo.bayes_a_opt_select(
+        None, torch.tensor(cand), 6, initial=init,
+        prior_k=None if prior is None else torch.tensor(prior),
+        weight_a=None if weight is None else torch.tensor(weight))
+    np.testing.assert_array_equal(_np(got), want)
+    assert not np.array_equal(want, init)
 
 
 def test_bayes_select_matches_jax_complex128():
-    """Given JAX's initial design and its starting matrix (``jax_gram``),
-    the exchange picks the same indices in complex128: one user with
-    K = I, and two users with diagonal priors and a weight A (the
-    weighted product the default skips).  On real rows (BPSK), where the
-    two starting matrices agree, the default picks JAX's indices too;
-    on complex rows the default (the matrix the updates track) lowers
-    the A-criterion of the initial design, where JAX's start does not."""
-    cand = _bayes_inputs(0, 40, 8)
+    """Given JAX's initial design, the exchange picks JAX's indices in
+    complex128 on real rows (BPSK), where JAX's starting matrix is the one
+    its updates track: one user with K = I, and two users with diagonal
+    priors and a weight A (the weighted product the default skips).  On
+    complex rows JAX's picks do not lower the criterion of the initial
+    design (its starting matrix is not the one its ``x x^H`` updates
+    track); the port's do."""
     key, m = jax.random.PRNGKey(1), 6
     init = np.asarray(jax.random.randint(key, (m,), 0, 40))
-    want = np.asarray(jbo.bayes_a_opt_select(key, jnp.asarray(cand), m))
-    got = tbo.bayes_a_opt_select(None, torch.tensor(cand), m, initial=init,
-                                 jax_gram=True)
-    np.testing.assert_array_equal(_np(got), want)
-    fixed = _np(tbo.bayes_a_opt_select(None, torch.tensor(cand), m,
-                                       initial=init))
-    assert tbo.a_criterion(cand[fixed]) < tbo.a_criterion(cand[init]) \
-        <= tbo.a_criterion(cand[want])
     real = np.real(_bayes_inputs(6, 40, 8, phases=2)).astype(np.complex128)
     want = np.asarray(jbo.bayes_a_opt_select(key, jnp.asarray(real), m))
     got = tbo.bayes_a_opt_select(None, torch.tensor(real), m, initial=init)
@@ -250,13 +341,18 @@ def test_bayes_select_matches_jax_complex128():
     prior = np.stack([np.diag(rng.uniform(0.5, 2.0, 8)) for _ in range(2)])
     weight = np.diag(rng.uniform(0.5, 1.5, 8)).astype(np.complex128)
     want = np.asarray(jbo.bayes_a_opt_select(
-        key, jnp.asarray(cand), m, prior_k=jnp.asarray(prior),
+        key, jnp.asarray(real), m, prior_k=jnp.asarray(prior),
         weight_a=jnp.asarray(weight)))
-    got = tbo.bayes_a_opt_select(None, torch.tensor(cand), m,
+    got = tbo.bayes_a_opt_select(None, torch.tensor(real), m,
                                  prior_k=torch.tensor(prior),
-                                 weight_a=torch.tensor(weight), initial=init,
-                                 jax_gram=True)
+                                 weight_a=torch.tensor(weight), initial=init)
     np.testing.assert_array_equal(_np(got), want)
+    cand = _bayes_inputs(0, 40, 8)
+    jax_sel = np.asarray(jbo.bayes_a_opt_select(key, jnp.asarray(cand), m))
+    ours = _np(tbo.bayes_a_opt_select(None, torch.tensor(cand), m,
+                                      initial=init))
+    assert tbo.a_criterion(cand[ours]) < tbo.a_criterion(cand[init]) \
+        <= tbo.a_criterion(cand[jax_sel])
 
 
 def test_priors_match_jax():
@@ -265,13 +361,15 @@ def test_priors_match_jax():
     h, vec = _channel()
     got = tbo.prior_from_channel(torch.tensor(h.T, dtype=torch.complex64),
                                  ARR_T, 9)
-    want = jbo.prior_from_channel(jnp.asarray(h.T, jnp.complex64), ARR_J, 9)
+    want = _jax(lambda: jbo.prior_from_channel(
+        jnp.asarray(h.T, jnp.complex64), ARR_J, 9))
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5)
     vh = np.stack([vec, vec * 0.5]).astype(np.complex128)
     vh[0, 3] = 0.0
     np.testing.assert_allclose(
         _np(tbo.noise_prior_from_vech(torch.tensor(vh), 3.0)),
-        np.asarray(jbo.noise_prior_from_vech(jnp.asarray(vh), 3.0)),
+        np.asarray(_jax(lambda: jbo.noise_prior_from_vech(jnp.asarray(vh),
+                                                        3.0))),
         rtol=1e-12)
 
 
@@ -279,27 +377,27 @@ def test_priors_match_jax():
 
 def test_sensing_modes_match_jax(monkeypatch):
     """The four modes that were ported last, at 4x4, Mt = 3, Mr = 2, batch
-    2, against JAX's on JAX's draws (the random-gain beams' seed, the
-    Bayes candidates and initial design handed over): F, W, FW and the
-    measurement matrix within 1e-5."""
+    2, against JAX's on JAX's draws (the random-gain beams' seed and the
+    Bayes candidates handed over, one selection for both): F, W, FW and
+    the measurement matrix within 1e-5; the Bayes mode hands its
+    selection JAX's candidates and M."""
     key = jax.random.PRNGKey(7)
     ad_j = jnp.asarray(np.asarray(
         tsteer.angle_dictionary(ARR_T, 95.0, dtype=torch.complex128,
                                 device="cpu")))
     ad_t = torch.tensor(np.asarray(ad_j))
     monkeypatch.setattr(tcb, "_beam_seed", lambda g, s: _jax_seed(key))
-    m, c = 6, 256
-    cand = np.asarray(jcb.random_sensing_rows(key, c, N))
-    init = np.asarray(jax.random.randint(jax.random.fold_in(key, 1), (m,),
-                                         0, c))
+    cand = np.asarray(jcb.random_sensing_rows(key, 256, N))
     monkeypatch.setattr(tsm, "random_sensing_rows",
                         lambda *a, **k: torch.tensor(cand))
-    _jax_select(monkeypatch, init)
+    seen = _one_selection(monkeypatch)
     for mode in ("Directional_Beam", "Directional_Random_Beam",
                  "Region_Random_Beam", "Random_Beam_Bayes"):
-        want = jsm.generate_sensing_matrix(key, mode, 3, 2, ARR_J, ad_j,
-                                           (-30.0, 30.0), (-30.0, 30.0),
-                                           batch=2)
+        call = lambda: jsm.generate_sensing_matrix(  # noqa: E731
+            key, mode, 3, 2, ARR_J, ad_j, (-30.0, 30.0), (-30.0, 30.0),
+            batch=2)
+        # the directional beams are built on the host
+        want = _jax(call) if mode == "Random_Beam_Bayes" else call()
         got = tsm.generate_sensing_matrix(None, mode, 3, 2, ARR_T, ad_t,
                                           (-30.0, 30.0), (-30.0, 30.0),
                                           batch=2)
@@ -307,57 +405,46 @@ def test_sensing_modes_match_jax(monkeypatch):
             np.testing.assert_allclose(_np(getattr(got, f)),
                                        np.asarray(getattr(want, f)),
                                        atol=1e-5, err_msg=f"{mode} {f}")
+    _same_selection_inputs(seen)
 
 
 def test_bayes_beam_builders_match_jax(monkeypatch):
-    """directional_beam_bayes (directional candidates, option 1) given
-    JAX's initial design and starting matrix: the same selection
-    (complex64 in both, 36 candidates, where no near-tie parts them).
-    directional_beam_bayes_v2 (a Tx dictionary): the same candidates,
-    priors and quantized beams for a given selection (JAX's start
-    overflows its Sherman-Morrison weight on these complex candidates,
-    so its picks are not compared); the port's picks lower the
-    two-user criterion of its initial design.  Option 2's random
-    candidates carry the reference's phase_bit**2 levels of pi/levels."""
+    """Both Bayes beam builders against JAX's, given one selection:
+    the same candidates, per-user priors and M handed to the selection
+    (complex64, rtol 1e-5), and the same rows or quantized beams from it:
+    directional_beam_bayes with directional candidates (option 1) and
+    the noise prior, directional_beam_bayes_v2 over a Tx dictionary with
+    the channel priors.  Then the port's own picks lower the two-user
+    criterion of its initial design.  Option 2's random candidates carry
+    the reference's phase_bit**2 levels of pi/levels."""
     key = jax.random.PRNGKey(9)
     _, vec = _channel()
     vh = np.stack([vec, vec[::-1]]).astype(np.complex64)
-    _jax_select(monkeypatch, np.asarray(jax.random.randint(
-        jax.random.fold_in(key, 7), (4,), 0, 36)))
-    want = jsm.directional_beam_bayes(key, 2, 2, ARR_J, jnp.asarray(vh),
-                                      snr_db=5.0, option=1, candidate_size=6)
+    seen = _one_selection(monkeypatch)
+    want = _jax(lambda: jsm.directional_beam_bayes(
+        key, 2, 2, ARR_J, jnp.asarray(vh), snr_db=5.0, option=1,
+        candidate_size=6))
     got = tsm.directional_beam_bayes(None, 2, 2, ARR_T, torch.tensor(vh),
                                      snr_db=5.0, option=1, candidate_size=6)
     np.testing.assert_allclose(_np(got.fw), np.asarray(want.fw), atol=1e-6)
     assert got.fw.shape == (2, 4, N) and not got.fw[1].abs().any()
-    monkeypatch.undo()
+    _same_selection_inputs(seen)
 
     ad = np.asarray(tsteer.dictionary(NT, 4 * NT, ARR_T.k_d, device="cpu"))
     h_users = np.stack([_channel(s)[0].T for s in (0, 1)]).astype(
         np.complex64)
-    seen = {}
-
-    def spy(tag, first):
-        def select(g, cand, m, prior_k=None):
-            seen[tag] = (np.asarray(cand), np.asarray(prior_k))
-            return first(m)
-        return select
-
-    monkeypatch.setattr(jsm, "bayes_a_opt_select", spy("jax", jnp.arange))
-    monkeypatch.setattr(tsm, "bayes_a_opt_select", spy("torch", torch.arange))
-    f_j, _ = jsm.directional_beam_bayes_v2(key, 2, 2, ARR_J, jnp.asarray(ad),
-                                           jnp.asarray(h_users), snr_db=3.0)
+    f_j, _ = _jax(lambda: jsm.directional_beam_bayes_v2(
+        key, 2, 2, ARR_J, jnp.asarray(ad), jnp.asarray(h_users), snr_db=3.0))
     f_t, _ = tsm.directional_beam_bayes_v2(None, 2, 2, ARR_T,
                                            torch.tensor(ad),
                                            torch.tensor(h_users), snr_db=3.0)
     np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), atol=1e-6)
-    for got, want in zip(seen["torch"], seen["jax"]):
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    _same_selection_inputs(seen)
     monkeypatch.undo()
     gen = torch.Generator().manual_seed(1)
     _, sel = tsm.directional_beam_bayes_v2(gen, 2, 2, ARR_T, torch.tensor(ad),
                                            torch.tensor(h_users), snr_db=3.0)
-    cand, prior = seen["torch"]
+    cand, prior, _ = seen["torch"]
     init = torch.randint(0, 181, (4,), generator=fold_in(gen, 11))
     assert tbo.a_criterion(cand[_np(sel)], prior) < \
         tbo.a_criterion(cand[_np(init)], prior)
@@ -376,7 +463,8 @@ def test_bayes_beam_builders_match_jax(monkeypatch):
 
 def test_pick_beams_bayes_beam():
     """Bayes_Beam picks through bayes_a_opt_select over a with-replacement
-    candidate draw (the selection itself is held to JAX above): M
+    candidate draw (the selection itself is held to the plain exchange
+    above): M
     indices of the codebook whose design beats the initial one."""
     cb = torch.tensor(_bayes_inputs(3, 60, N, np.complex64))
     gen = torch.Generator().manual_seed(4)

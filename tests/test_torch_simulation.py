@@ -35,6 +35,7 @@ from twoace_tpu_torch.pipeline import simulation as tsim
 from twoace_tpu_torch.sensing import codebooks as tcb
 from twoace_tpu_torch.sensing import sensing_matrix as tsm
 from twoace_tpu_torch.utils import metrics as tm
+from twoace_tpu_torch.utils.rng import fold_in
 
 ATOL = 1e-10
 ARR_J, ARR_T = jcfg.ArrayConfig(nt=4, nr=4), tcfg.ArrayConfig(nt=4, nr=4)
@@ -287,6 +288,44 @@ def _feed_jax_cells(monkeypatch):
     return queue
 
 
+@pytest.mark.parametrize("mode", ["Random_Phase_State",
+                                  "Directional_Beam_Angular"])
+def test_draw_cell_composes_the_draws(mode):
+    """The port's draw_cell, which the sweep tests above replace by JAX's
+    draws: the channels, sparse formulation, sensing matrix and
+    measurements it returns are the port's own helpers called with
+    ``fold_in(g, 0 / 1 / 2)``, over (-area/2, area/2), and the noise
+    colored by W only where the mode has a combiner (iid where it has
+    none), exactly (the same CPU draws)."""
+    sim = tsim.SimulationConfig(array=ARR_T,
+                                channel=tcfg.ChannelConfig(n_paths=2),
+                                snr_db=5.0, beam_method=mode, n_trials=2)
+    mt, mr = (6, 1) if mode == "Random_Phase_State" else (3, 2)
+    g = torch.Generator().manual_seed(21)
+    ch, rep, sensing, meas = tsim.draw_cell(g, sim, mt, mr, 60.0,
+                                            device="cpu")
+    ch_w = tch.generate_channel(fold_in(g, 0), ARR_T, sim.channel, batch=2,
+                                device="cpu")
+    rep_w = tsp.sparse_formulation(ARR_T, ch_w, 60.0)
+    sens_w = tsm.generate_sensing_matrix(
+        fold_in(g, 1), mode, mt, mr, ARR_T, rep_w.ad,
+        aod_range=(-30.0, 30.0), aoa_range=(-30.0, 30.0), batch=2)
+    w_rule, w_other = ((None, sens_w.w) if mode == "Random_Phase_State"
+                       else (sens_w.w, None))
+    meas_w = tmeas.generate_measurement(fold_in(g, 2), sens_w.fw, ch_w.vec_h,
+                                        5.0, True, w=w_rule, mt=mt)
+    for got, want in ((ch, ch_w), (rep, rep_w), (sensing, sens_w),
+                      (meas, meas_w)):
+        for a, b in zip(got, want):
+            if isinstance(b, torch.Tensor):
+                assert torch.equal(a, b)
+            else:
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    other = tmeas.generate_measurement(fold_in(g, 2), sens_w.fw, ch_w.vec_h,
+                                       5.0, True, w=w_other, mt=mt)
+    assert not torch.equal(other.perfect_phase, meas.perfect_phase)
+
+
 def _jax_cell(seed, m, trials=2, snr_db=20.0):
     """A 4x4 Random_Phase_State cell drawn by JAX, in complex128."""
     key = jax.random.PRNGKey(seed)
@@ -378,10 +417,12 @@ def _curves_close(got, want, tol_db=3.0):
 
 
 def test_sweep_measurements_matches_jax_curves(monkeypatch):
-    """Vs_M end to end at 4x4 (2 paths, SNR 20, Random_Phase_State, 3
-    trials) at M 4 (fewer probes than unknowns: every method near 0 dB)
-    and M 64 (= 4n, every method resolved), the port handed JAX's draws
-    cell by cell: each curve within 3 dB of JAX's.  A curve is the dB of
+    """Vs_M at 4x4 (2 paths, SNR 20, Random_Phase_State, 3 trials) from
+    the draws to the curves, with JAX's draws handed over cell by cell in
+    place of draw_cell's (held on its own in
+    test_draw_cell_composes_the_draws), at M 4 (fewer probes than
+    unknowns: every method near 0 dB) and M 64 (= 4n, every method
+    resolved): each curve within 3 dB of JAX's.  A curve is the dB of
     the mean linear NMSE, which one poor trial moves by several dB when
     the two packages draw their own channels (the per-trial spread of
     PLOMP and PLGAMP is about +-4 dB here); on JAX's draws only A2's
@@ -398,8 +439,9 @@ def test_sweep_measurements_matches_jax_curves(monkeypatch):
 
 
 def test_sweep_snr_matches_jax_curves(monkeypatch):
-    """Vs_SNR end to end at 4x4, M 64, SNR 10 and 30, 3 trials, the port
-    handed JAX's draws: each curve within 3 dB of JAX's."""
+    """Vs_SNR at 4x4, M 64, SNR 10 and 30, 3 trials, the port handed
+    JAX's draws in place of draw_cell's: each curve within 3 dB of
+    JAX's."""
     sim_j, sim_t = _sims(n_trials=3,
                          methods=dict(admm_lowrank_v4=True, plomp=True))
     queue = _feed_jax_cells(monkeypatch)

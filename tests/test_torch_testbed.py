@@ -99,8 +99,9 @@ def _runners(tmp_path=None, **kw):
 
 
 def test_campaigns_match_jax_given_its_bits():
-    """All five campaigns at 4x4, at their fewest rounds: the same probe rows (to 1e-6: the port's
-    rows are complex64, JAX's complex128 under x64) and the same
+    """All five campaigns at 4x4, at their fewest rounds: the same probe
+    rows (to 1e-6: the port's rows are complex64, JAX's complex128 under
+    x64) and the same
     noiseless RSS (to 1e-4 dB), one provider call a round; the ACO
     sweep's codewords equal."""
     run_j, run_t, _ = _runners(**SMALL)
@@ -160,11 +161,13 @@ def test_checkpoint_resume_and_store_interop(tmp_path):
 def test_estimate_and_beams_match_jax(monkeypatch, tmp_path):
     """``estimate("random", "a2only")`` of both packages on the port's
     noisy 64-row campaign (0.3 dB jitter, RSSI words) at one grid point,
-    M 64: NMSE within 1 dB of JAX's (both near -8 dB).  Then beamforming_comparison and the
-    evaluation codebook of the same estimates through noiseless
-    providers: the SVD and ACO beams' RSS equal to 1e-4 dB (the port's
-    rows are complex64; the SVD bits may differ by each SVD's phase, not
-    by their gain)."""
+    M 64: NMSE within 1 dB of JAX's (both near -8 dB).  Then
+    beamforming_comparison of the same estimates through noiseless
+    providers, its RSS equal to JAX's to 1e-4 dB (the port's rows are
+    complex64; the SVD bits may differ by each SVD's phase, not by their
+    gain), and the evaluation codebook's SVD and ACO beams at those RSS
+    (less 10 log10(n) dB: unit-norm rows) and JAX's provider's (the
+    codebook itself is held to JAX's in test_torch_sensing.py)."""
     x = _channel()
     _, cfg_t = _configs(checkpoint_dir=str(tmp_path))
     run_t = ttb.TestbedRunner(cfg_t, tprov.SyntheticProvider(
@@ -202,11 +205,19 @@ def test_estimate_and_beams_match_jax(monkeypatch, tmp_path):
     bf_j = run_j.beamforming_comparison(est)
     for k in est:
         assert bf_t[k] == pytest.approx(bf_j[k], abs=1e-4)
-    aco = tuple(np.arange(4) % 4 for _ in range(2))
-    rss_t, tx_t, _ = run_t.evaluate_codebook_rss(np.stack(ests), aco_bits=aco)
-    rss_j, tx_j, _ = run_j.evaluate_codebook_rss(np.stack(ests), aco_bits=aco)
-    assert tx_t.shape == tx_j.shape == (53, NT)
-    np.testing.assert_allclose(rss_t[:3], rss_j[:3], atol=1e-4)
+    aco = (np.arange(NT) % 4, np.arange(NR)[::-1] % 4)
+    rss_t, tx_t, rx_t = run_t.evaluate_codebook_rss(
+        np.stack(list(est.values())), aco_bits=aco)
+    assert tx_t.shape == (53, NT) and rx_t.shape == (53, NR)
+    # its SVD beams are beamforming_comparison's at 1/sqrt(n) amplitude,
+    # its ACO beam JAX's provider's on the same row
+    np.testing.assert_allclose(
+        rss_t[:2], [bf_j[k] - 10 * np.log10(N) for k in est], atol=1e-4)
+    aco_row = np.kron(np.exp(0.5j * np.pi * aco[0]) / np.sqrt(NT),
+                      np.exp(0.5j * np.pi * aco[1]) / np.sqrt(NR))
+    assert rss_t[2] == pytest.approx(
+        float(run_j.provider.measure(jnp.asarray(aco_row[None]))[0]),
+        abs=1e-4)
     assert np.isfinite(rss_t).all()
 
 
@@ -229,6 +240,9 @@ def test_thermal_guard_and_device():
 
 # ------------------------------------------------------------- utilities
 
+SPECTRA = ("singular_profile", "captured_energy", "eig_decay", "nuclear_norm")
+
+
 def test_spectral_analysis_and_profiling_match_jax(tmp_path):
     """The spectral-profile analysis of a batch of 4x4 channels (complex128:
     within 1e-10), and the timers: the same report layout as JAX's, a
@@ -237,18 +251,19 @@ def test_spectral_analysis_and_profiling_match_jax(tmp_path):
     h = rng.normal(size=(3, NT, NR)) + 1j * rng.normal(size=(3, NT, NR))
     h[0] = np.outer(steer(NT, 0.2), steer(NR, -0.4))       # rank one
     ht, hj = torch.tensor(h), jnp.asarray(h)
-    for name in ("singular_profile", "captured_energy", "eig_decay",
-                 "nuclear_norm"):
+    # JAX's side under one jax.jit: one compile in place of one per op
+    want = jax.jit(lambda x: (
+        [getattr(jspec, name)(x) for name in SPECTRA],
+        jspec.l1_norm(x.reshape(3, -1)), jspec.power_law_fit(x),
+        jspec.ladder_deviation(x, NT, NR)))(hj)
+    for name, w in zip(SPECTRA, want[0]):
         np.testing.assert_allclose(getattr(tspec, name)(ht).numpy(),
-                                   np.asarray(getattr(jspec, name)(hj)),
-                                   atol=1e-10, err_msg=name)
+                                   np.asarray(w), atol=1e-10, err_msg=name)
     np.testing.assert_allclose(tspec.l1_norm(ht.reshape(3, -1)).numpy(),
-                               np.asarray(jspec.l1_norm(hj.reshape(3, -1))),
-                               atol=1e-10)
-    for got, want in zip(tspec.power_law_fit(ht), jspec.power_law_fit(hj)):
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-10)
-    got, want = tspec.ladder_deviation(ht, NT, NR), \
-        jspec.ladder_deviation(hj, NT, NR)
+                               np.asarray(want[1]), atol=1e-10)
+    for got, w in zip(tspec.power_law_fit(ht), want[2]):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=1e-10)
+    got, want = tspec.ladder_deviation(ht, NT, NR), want[3]
     assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),

@@ -17,22 +17,23 @@ has never been placed.  As in JAX, each user's inverse is updated exactly
 and the criterion deltas are summed (the reference updates the summed
 inverse, which is only approximate for U > 1).
 
-The rank-1 updates remove and add a design row x as ``x x^H``, so the
-inverse they track is that of ``sum_r x_r x_r^H + K = X^T conj(X) + K``,
-whose trace equals the A-criterion of ``X^H X + K`` for a real K.  The
-port starts from that matrix.  JAX starts from ``inv(X^H X + K)``, which
-the updates do not track for complex rows: its exchange then works on a
-matrix that mixes the initial design into every later step, and its
-picks barely move (or worsen) the criterion of the initial random
-design.  ``jax_gram=True`` starts from JAX's matrix, for parity; for real
-rows the two are the same.
+The exchange removes and adds a design row x as the rank-1 term
+``v v^H`` with ``v = conj(x)``, so the inverse it tracks is that of
+``sum_r conj(x_r) x_r^T + K = X^H X + K``: the matrix the criterion
+names.  Where a prior K is not Hermitian (the noise prior of a complex
+channel, :func:`noise_prior_from_vech`), that inverse is not Hermitian
+either, and each update takes its left and right vectors apart; the
+criterion's real part is minimized, as the reference's ``a < acutoff``
+compares it.  JAX inverts ``X^H X + K`` but updates as ``x x^H``; the
+two agree for real rows.
 
 The selection runs on the candidates' device as ``sweeps * m`` exchange
 steps.  Each step multiplies the U (n, n) inverses into all C candidates
 (one batched complex ``torch.matmul`` with TF32 off, JAX's "float32"
-precision) and reduces over n; the step's commit is a ``torch.where`` on
-the device, so the loop never waits for the card.  The slots placed in
-the first sweep are known on the host.
+precision; a second one for the left vectors where K is not Hermitian)
+and reduces over n; the step's commit is a ``torch.where`` on the
+device, so the loop never waits for the card.  The slots placed in the
+first sweep are known on the host.
 """
 
 from __future__ import annotations
@@ -48,18 +49,17 @@ from ..ops.pair_solver import no_tf32
 
 def bayes_a_opt_select(generator: Optional[torch.Generator], candidates,
                        m: int, prior_k=None, weight_a=None, sweeps: int = 2,
-                       initial=None, jax_gram: bool = False) -> torch.Tensor:
+                       initial=None) -> torch.Tensor:
     """Select ``m`` row indices from ``candidates`` (C, n), complex.
 
     ``prior_k``: prior precision K, (n, n), or a stack (U, n, n) for the
     multi-user criterion (default I, as Bayes_Beam.m:13 uses);
-    ``weight_a``: A-criterion weight (default I; then the step skips the
-    weighted product, whose result would equal the unweighted one).
-    The random initial design (ref: bayesAopt_complex.m:127-128) is drawn
-    with ``torch.randint`` from ``generator`` on the CPU; ``initial``
+    ``weight_a``: A-criterion weight, Hermitian (default I; then the step
+    skips the weighted product, whose result would equal the unweighted
+    one).  The random initial design (ref: bayesAopt_complex.m:127-128) is
+    drawn with ``torch.randint`` from ``generator`` on the CPU; ``initial``
     ((m,) host indices) replaces it (tests hand over JAX's draw).
-    ``jax_gram``: start from JAX's ``inv(X^H X + K)`` (see the module
-    docstring).  Returns int64 indices (m,) on the candidates' device.
+    Returns int64 indices (m,) on the candidates' device.
     """
     cand = torch.as_tensor(candidates)
     c_count, n = cand.shape
@@ -70,6 +70,7 @@ def bayes_a_opt_select(generator: Optional[torch.Generator], candidates,
         prior_k = torch.as_tensor(prior_k).to(device=dev, dtype=dtype)
     if prior_k.dim() == 2:
         prior_k = prior_k[None]          # single user == U = 1
+    hermitian = bool(torch.equal(prior_k, prior_k.mH))
     if weight_a is not None:
         weight_a = torch.as_tensor(weight_a).to(device=dev, dtype=dtype)
     acutoff = -math.sqrt(torch.finfo(cand.real.dtype).eps)
@@ -78,49 +79,53 @@ def bayes_a_opt_select(generator: Optional[torch.Generator], candidates,
     rowlist = torch.tensor(np.asarray(initial), dtype=torch.int64,
                            device=dev)
 
+    def recip(s):                        # the Sherman-Morrison weight 1/s
+        if hermitian:                    # s is real: JAX's clamp
+            return 1.0 / torch.clamp(s.real, min=1e-12)
+        return 1.0 / s
+
+    def quad(l, r):                      # l^H A r over the n axis (dim 1)
+        if weight_a is not None:
+            return torch.sum(l.conj() * (weight_a @ r), dim=1)
+        if l is r:
+            return torch.linalg.vector_norm(r, dim=1) ** 2
+        return torch.sum(l.conj() * r, dim=1)
+
     with no_tf32():
         x0 = cand[rowlist]
-        gram = x0.mH @ x0 if jax_gram else x0.T @ x0.conj()
-        minv = torch.linalg.inv(gram + prior_k)                  # (U, n, n)
-        cand_t = cand.T.contiguous()                             # (n, C)
-        ch_t = cand_t.conj()
-
-        def weighted(v):                                         # A @ v
-            return v if weight_a is None else weight_a @ v
+        minv = torch.linalg.inv(x0.mH @ x0 + prior_k)            # (U, n, n)
+        xt = cand.T.contiguous()                                 # (n, C)
+        vt = xt.conj().resolve_conj()                            # the v_c
 
         for i in range(sweeps * m):
             row = i % m
-            x = cand.index_select(0, rowlist[row:row + 1])[0]    # (n,)
-            # remove the row, per user: Ninv_u = Minv_u + w_u u_u u_u^H
+            v = vt.index_select(1, rowlist[row:row + 1])         # (n, 1)
+            # remove the row, per user: Ninv_u = Minv_u + w_u r_u l_u^H
             # (ref :145-146)
-            u = minv @ x                                         # (U, n)
-            w = 1.0 / torch.clamp(
-                (1.0 - torch.sum(x.conj() * u, dim=-1)).real, min=1e-12)
-            ninv = minv + w[:, None, None] * (u[:, :, None]
-                                              * u.conj()[:, None, :])
-            # removal delta: +sum_u w_u u_u^H A u_u (ref: MyBayesAopt.m:162-163)
-            au = weighted(u[..., None])[..., 0]
-            removal = torch.sum(w * torch.sum(u.conj() * au, dim=-1).real)
+            r = minv @ v                                         # (U, n, 1)
+            l = r if hermitian else minv.mH @ v
+            w = recip(1.0 - torch.sum(v.conj() * r, dim=(1, 2)))  # (U,)
+            ninv = minv + w[:, None, None] * (r @ l.mH)
+            # removal delta: +sum_u w_u l_u^H A r_u
+            # (ref: MyBayesAopt.m:162-163)
+            removal = torch.sum(w * quad(l, r)[:, 0])
             # addition deltas of every candidate (ref :166-171):
-            # trace(A (Ninv - w_c u_c u_c^H)) = trace(A Ninv) - w_c u_c^H A u_c
-            u_all = ninv @ cand_t                                # (U, n, C)
-            denom = 1.0 + torch.sum(ch_t * u_all, dim=1).real    # (U, C)
-            w_all = 1.0 / torch.clamp(denom, min=1e-12)
-            if weight_a is None:
-                quad = torch.linalg.vector_norm(u_all, dim=1) ** 2
-            else:
-                quad = torch.sum(u_all.conj() * weighted(u_all), dim=1).real
-            delta = removal - torch.sum(w_all * quad, dim=0)     # (C,)
+            # trace(A (Ninv - w_c r_c l_c^H))
+            #     = trace(A Ninv) - w_c l_c^H A r_c
+            r_all = ninv @ vt                                    # (U, n, C)
+            l_all = r_all if hermitian else ninv.mH @ vt
+            w_all = recip(1.0 + torch.sum(xt * r_all, dim=1))    # (U, C)
+            delta = (removal - torch.sum(w_all * quad(l_all, r_all),
+                                         dim=0)).real            # (C,)
             idx = torch.argmin(delta)                            # first on ties
             # commit when it improves or the slot was never placed
             # (ref: MyBayesAopt.m:201 ``(a < acutoff) || (rowlist(row) == 0)``)
             take = delta[idx] < acutoff
             if i < m:
                 take = torch.ones_like(take)
-            u_i = u_all[:, :, idx]                               # (U, n)
-            w_i = w_all[:, idx]
-            minv_new = ninv - w_i[:, None, None] * (u_i[:, :, None]
-                                                    * u_i.conj()[:, None, :])
+            r_i = r_all[:, :, idx, None]                         # (U, n, 1)
+            l_i = r_i if hermitian else l_all[:, :, idx, None]
+            minv_new = ninv - w_all[:, idx, None, None] * (r_i @ l_i.mH)
             minv = torch.where(take, minv_new, minv)
             rowlist[row] = torch.where(take, idx, rowlist[row])
     return rowlist
