@@ -32,14 +32,15 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      ``brownian_trace``;
   6. the testbed campaign through the complex family (K5) on 3968 random
      probe rows: a noiseless M = 1024 point, ``recover_a2nuclear``,
-     ``recover_warm_sweep``, ``track(solver=None)`` for TRACK_WINDOWS
+     ``recover_warm_sweep``, ``track(solver=None)`` for TRACK_WINDOWS (5)
      windows and one profiled M = 1024 solve (its ``recover_a2only``
      grid runs in phase 9, through the testbed driver);
   7. the headline Vs_M campaign of VSM_r05.json: ``sweep_measurements``
      at 16x16 with A2 on the pair path (K3) against PhaseLift, PLOMP,
      PLGAMP and perfect/noisy-phase CS over VSM_r05's points from M 529,
-     each curve beside VSM_r05's (it fails if one is more than 3 dB off,
-     or if A2 does not beat PLOMP at M = 784 and 1024); one
+     VSM_TRIALS (4) trials a point, each curve beside VSM_r05's (it
+     fails if one is more than 3 dB off, or if A2 does not beat PLOMP
+     at M = 784 and 1024); one
      complex-family A2 cell (K5), one ``sweep_snr`` point beside
      VSSNR_r05.json, one profiled cell;
   8. the paths of the VS_SR campaign, the trace and windowed simulations,
@@ -76,6 +77,17 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      ``python -m twoace_tpu_torch testbed`` in a subprocess (its NMSE
      below CLI_NMSE_DB) and again with CUDA hidden (it must fail); one
      Z-free ``infer_admm_pair`` (K4, K1, no K2) held against the CPU;
+ 10. the sharded paths (``twoace_tpu_torch.parallel``) on phase 3's
+     problem, its first SHARDED_BATCH instances: (i) one rank over NCCL
+     in this process, mesh (1, 1): ``solve_lowrank_multi_sharded_pair``
+     (K4, K1, K2; no K3) held to phase 3's bars, then
+     ``solve_lowrank_sharded`` on the complex twin (K5) on the first
+     SHARDED_COMPLEX_BATCH, and ``scaling_benchmark()`` at its defaults
+     (d = 1); (ii) two ranks sharing the card over gloo, spawned once,
+     mesh (1, 2): the same two solves, held to (i); each with its
+     seconds, loop trips, all-reduces a trip, NMSE and quality; then
+     ``entry()``'s step against the CPU's, ``dryrun_multichip(1)``, and
+     ``dryrun_multichip(2)``, which must raise on one card.
 
 Between phases 2 and 3 the chain benchmark (``chain``), K6's own path,
 runs ``scripts/torch_bench_pallas_mm.py``'s body.
@@ -120,6 +132,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -130,6 +143,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from twoace_tpu_torch import interop  # noqa: E402
 from twoace_tpu_torch.config import (  # noqa: E402
     AdmmConfig, ArrayConfig, ChannelConfig, MethodFlags, probe_budget_grid)
+from twoace_tpu_torch.entry import dryrun_multichip, entry  # noqa: E402
 from twoace_tpu_torch.models.channel import generate_channel  # noqa: E402
 from twoace_tpu_torch.ops import admm, dispatch  # noqa: E402
 from twoace_tpu_torch.ops.cplx import LadderArrays, Pair  # noqa: E402
@@ -146,6 +160,10 @@ from twoace_tpu_torch.ops.pair_solver import (  # noqa: E402
     no_tf32, refine_lowrank_pair, solve_lowrank_multi_pair,
     solve_lowrank_multi_pair_batch)
 from twoace_tpu_torch.ops.prox import profile_ladder_arrays  # noqa: E402
+from twoace_tpu_torch.parallel import (  # noqa: E402
+    make_mesh, problem_sharding, scaling_benchmark, solve_lowrank_sharded,
+    solve_lowrank_multi_sharded_pair, spawn_ranks)
+from twoace_tpu_torch.parallel.distributed import free_port  # noqa: E402
 from twoace_tpu_torch.pipeline import mobility, recovery, simulation  # noqa: E402
 from twoace_tpu_torch.models.steering import angle_dictionary  # noqa: E402
 from twoace_tpu_torch.pipeline.testbed import (  # noqa: E402
@@ -272,7 +290,10 @@ CAMPAIGN_ROUNDS, CAMPAIGN_SECTORS = 64, 62
 CAMPAIGN_SEED = 6
 #: the channel's scale, as in the testbed sample (about -46 dBm per probe)
 CHANNEL_SCALE = 3e-4
-TRACK_WINDOWS = 10
+#: windows of ``track(solver=None)``: cut from 10 to 5 for phase 10 (it
+#: checks only that the estimates are finite); back to 10 once the
+#: two-stage FISTA is faster (ROADMAP.md)
+TRACK_WINDOWS = 5
 
 #: phase 7: the headline Vs_M campaign of VSM_r05.json
 #: (scripts/finalize_vsm_artifact.py:6-10): 16x16, 3 paths, 95 degrees,
@@ -287,8 +308,8 @@ VSM_AREA = 95.0
 #: trials per point: VSM_r05 ran 10; cut to 5 for the script's time
 #: limit (the eight points at 5 trials took 290-380 s on an H100, 85% of
 #: it the two-stage FISTA's 4000 eigh a recovery; PERF.md sections 4 and
-#: 5)
-VSM_TRIALS = 5
+#: 5), then to 4 for phase 10; back to 10 once FISTA is faster
+VSM_TRIALS = 4
 #: the checks at M >= VSM_CHECK_FROM: every curve within VSM_TOL_DB of
 #: VSM_r05's, and A2 below PLOMP at VSM_A2_WINS.  Only those points of
 #: VSM_r05's grid are swept: the five below, which no check reads, were
@@ -423,6 +444,55 @@ ZFREE_LANES, ZFREE_RTOL = 3, 1e-3
 #: the estimated channel's SVD beam against the true channel's, measured
 #: through the provider (0.5 dB jitter): at most this many dB weaker
 BF_DB_GAP = 3.0
+#: phase 10: the sharded paths on phase 3's problem (seed 1), its first
+#: SHARDED_BATCH instances, the shared codebook broadcast to
+#: (SHARDED_BATCH, 1024, 256), at the production scaffold's config (the
+#: JAX package's sharded scaffolds read no pass caps)
+SHARDED_BATCH = 4
+#: the complex twin solves its instances one after another (≈ 1.4 s an
+#: instance on one rank, 3 s on two; chip run, PR 12, call 1): it takes
+#: the first SHARDED_COMPLEX_BATCH of them, cut from 4 for the script's
+#: time limit (phase 10 took 65.2 s with 4, against the ≈ 47 s that
+#: phase 6's and phase 7's cuts freed)
+SHARDED_COMPLEX_BATCH = 2
+SHARDED_CFG = AdmmConfig(maxiter=500, warm_iters=80, n_restarts=3)
+#: two ranks over gloo against one over NCCL: each instance's quality
+#: within SHARDED_Q_TOL, its NMSE both at most -60 dB or within
+#: SHARDED_DB_TOL dB (the two sum the rows in another order, and the loop
+#: amplifies float32 rounding)
+SHARDED_Q_TOL = 1e-3
+SHARDED_DB_TOL = 1.0
+#: each run's bar: the pair scaffold's median NMSE and the complex
+#: twin's NMSE at every instance at most this (phase 3's bar)
+SHARDED_DB_BAR = -60.0
+SHARDED_TIMEOUT = 600.0
+#: entry()'s step on the card against the same step on the CPU (plain
+#: versions): max |difference| over the largest |value| of each output
+#: pair (K4's 3xTF32 and K2's chain, PERF.md section 6)
+ENTRY_RTOL = 1e-4
+#: the shapes phase 10 gives each kernel, held against the plain versions
+#: in phase 2 at the tolerances above (not timed): the pair scaffold's
+#: G = SHARDED_BATCH x RESTARTS groups of r 20 and its refine's
+#: SHARDED_BATCH groups of one vector, at m 1024 a rank (one rank) and
+#: 512 (two), and entry()'s one lane of r 20 at m 1024
+SHARDED_MS = (M, M // 2)
+SHARDED_GROUPS = ((SHARDED_BATCH * RESTARTS, R), (SHARDED_BATCH, 1))
+K4_SHARDED_SHAPES = list(dict.fromkeys(
+    [(g, r, k, n) for g, r in SHARDED_GROUPS for m in SHARDED_MS
+     for k, n in ((m, N), (N, N), (N, m))]
+    + [(1, R, k, n) for k, n in ((M, N), (N, N), (N, M))]))
+#: K1's (lanes, r, m, forms): both forms in the two passes, the row form
+#: in the refine and entry()
+K1_SHARDED_SHAPES = ([(g, r, m, (False, True) if r > 1 else (False,))
+                      for g, r in SHARDED_GROUPS for m in SHARDED_MS]
+                     + [(1, R, M, (False,))])
+#: K2's (lanes, r, nt, nr)
+K2_SHARDED_SHAPES = ([(g, r, NT, NR) for g, r in SHARDED_GROUPS]
+                     + [(1, R, NT, NR)])
+#: K5's (m, r, dtype, per_entry): the complex twin's passes at r 20 and
+#: its rank-1 solves, complex64
+K5_SHARDED_SHAPES = [(m, r, torch.complex64, pe) for m in SHARDED_MS
+                     for r, pe in ((R, False), (R, True), (1, False))]
 
 #: H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 flop/s
 #: outside the tensor cores, dense TF32 flop/s on the tensor cores
@@ -575,6 +645,19 @@ def k2_case(lanes, r, nt, nr, seed=0):
     return z, v0, lad
 
 
+def k2_held(z, v0, lad, nt, nr):
+    """K2 against its plain version, each entry within K2_ATOL; returns
+    K2's outputs and the max |error|."""
+    zn, vn = fused_zprox_t(z, v0, nt, nr, lad)
+    zn0, vn0 = zprox_t_plain(z, v0, nt, nr, lad)
+    torch.cuda.synchronize()
+    for got, want in ((zn.re, zn0.re), (zn.im, zn0.im), (vn.re, vn0.re),
+                      (vn.im, vn0.im)):
+        torch.testing.assert_close(got, want, rtol=0.0, atol=K2_ATOL)
+    return zn, vn, max_err([zn.re, zn.im, vn.re, vn.im],
+                           [zn0.re, zn0.im, vn0.re, vn0.im])
+
+
 def phase2_k2():
     """K2 against its plain version at K2_SHAPES, each entry of both
     outputs within K2_ATOL (the batch shape also moved by its ladders:
@@ -588,14 +671,7 @@ def phase2_k2():
     out = {}
     for lanes, r, nt, nr in K2_SHAPES:
         z, v0, lad = k2_case(lanes, r, nt, nr)
-        zn, vn = fused_zprox_t(z, v0, nt, nr, lad)
-        zn0, vn0 = zprox_t_plain(z, v0, nt, nr, lad)
-        torch.cuda.synchronize()
-        for got, want in ((zn.re, zn0.re), (zn.im, zn0.im), (vn.re, vn0.re),
-                          (vn.im, vn0.im)):
-            torch.testing.assert_close(got, want, rtol=0.0, atol=K2_ATOL)
-        err = max_err([zn.re, zn.im, vn.re, vn.im],
-                      [zn0.re, zn0.im, vn0.re, vn0.im])
+        zn, vn, err = k2_held(z, v0, lad, nt, nr)
         moved = float((zn.re - z.re).abs().max())
         if (lanes, r, nt, nr) == K2_SHAPES[0] and moved < 1e-2:
             raise RuntimeError(f"K2 check is vacuous: the ladder moved z by "
@@ -625,8 +701,14 @@ def phase2_k2():
         out[(lanes, r, nt, nr)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, device_ms=dev, **bnd,
             library_ms=None)
+    errs = [o["max_abs_err"] for o in out.values()]
+    for lanes, r, nt, nr in K2_SHARDED_SHAPES:
+        errs.append(k2_held(*k2_case(lanes, r, nt, nr), nt, nr)[2])
+        print(f"[2 K2 fused_zprox_t] phase 10's lanes {lanes} r {r} nt {nt} "
+              f"nr {nr}: max_abs_err {errs[-1]:.3e} (tol {K2_ATOL}; held, "
+              f"not timed)", flush=True)
     first = dict(out[K2_SHAPES[0]])
-    first["max_abs_err"] = max(o["max_abs_err"] for o in out.values())
+    first["max_abs_err"] = max(errs)
     return first
 
 
@@ -650,34 +732,44 @@ def print_k2_phases():
                   f"build, lane 0: {fmt_split(split)}", flush=True)
 
 
-def phase2_kernels():
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
+def k1_case(gen, lanes, r, m):
+    """K1's inputs at (lanes, r, m), drawn from ``gen``, with 7 inactive
+    padding columns (b = 0) and 4 zero columns."""
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
+    ax = Pair(randn(lanes, r, m), randn(lanes, r, m))
+    md = Pair(randn(lanes, r, m), randn(lanes, r, m))
+    b = torch.rand(lanes, m, generator=gen, device="cuda") + 0.5
+    b[:, :7] = 0.0                       # inactive padding columns
+    ax.re[:, :, 7:11] = 0.0              # zero columns
+    ax.im[:, :, 7:11] = 0.0
+    md.re[:, :, 7:11] = 0.0
+    md.im[:, :, 7:11] = 0.0
+    mu = torch.rand(lanes, generator=gen, device="cuda") + 1e-3
+    return ax, b, md, mu
+
+
+def k1_held(ax, b, md, mu, per_entry):
+    """K1 against its plain version within K1_TOL; its max |error|."""
+    y, mo = fused_prox_dual_t(ax, b, md, mu, per_entry=per_entry)
+    y0, mo0 = prox_dual_t_plain(ax, b, md, mu, per_entry)
+    torch.cuda.synchronize()
+    for got, want in ((y.re, y0.re), (y.im, y0.im), (mo.re, mo0.re),
+                      (mo.im, mo0.im)):
+        torch.testing.assert_close(got, want, **K1_TOL)
+    return max_err([y.re, y.im, mo.re, mo.im], [y0.re, y0.im, mo0.re, mo0.im])
+
+
+def phase2_kernels():
+    gen = torch.Generator(device="cuda").manual_seed(0)
     summary = {}
     # K1: first-pass train split and full-data shapes, both prox modes
     errs, times = [], {}
     for m in (M_TRAIN, M):
-        ax = Pair(randn(LANES, R, m), randn(LANES, R, m))
-        md = Pair(randn(LANES, R, m), randn(LANES, R, m))
-        b = torch.rand(LANES, m, generator=gen, device="cuda") + 0.5
-        b[:, :7] = 0.0                       # inactive padding columns
-        ax.re[:, :, 7:11] = 0.0              # zero columns
-        ax.im[:, :, 7:11] = 0.0
-        md.re[:, :, 7:11] = 0.0
-        md.im[:, :, 7:11] = 0.0
-        mu = torch.rand(LANES, generator=gen, device="cuda") + 1e-3
+        ax, b, md, mu = k1_case(gen, LANES, R, m)
         for per_entry in (False, True):
-            y, mo = fused_prox_dual_t(ax, b, md, mu, per_entry=per_entry)
-            y0, mo0 = prox_dual_t_plain(ax, b, md, mu, per_entry)
-            torch.cuda.synchronize()
-            for got, want in ((y.re, y0.re), (y.im, y0.im),
-                              (mo.re, mo0.re), (mo.im, mo0.im)):
-                torch.testing.assert_close(got, want, **K1_TOL)
-            err = max_err([y.re, y.im, mo.re, mo.im],
-                          [y0.re, y0.im, mo0.re, mo0.im])
+            err = k1_held(ax, b, md, mu, per_entry)
             errs.append(err)
             ms = cuda_ms(lambda: fused_prox_dual_t(ax, b, md, mu,
                                                    per_entry=per_entry))
@@ -690,6 +782,14 @@ def phase2_kernels():
                   f"per_entry {per_entry}: max_abs_err {err:.3e} | kernel "
                   f"{ms:.4f} ms (events), device {fmt_ms(dev)} per launch "
                   f"(profiler) | plain {plain:.4f} ms", flush=True)
+    for lanes, r, m, forms in K1_SHARDED_SHAPES:
+        case = k1_case(gen, lanes, r, m)
+        for per_entry in forms:
+            err = k1_held(*case, per_entry)
+            errs.append(err)
+            print(f"[2 K1 fused_prox_dual_t] phase 10's lanes {lanes} r {r} "
+                  f"m {m} per_entry {per_entry}: max_abs_err {err:.3e} "
+                  f"(held, not timed)", flush=True)
     # bound at the row-form m 972 shape: 4 planes in, 4 out, b and mu;
     # about 16 flops per entry
     k1_bytes = (8 * LANES * R * M_TRAIN + LANES * M_TRAIN + LANES) * 4
@@ -802,6 +902,24 @@ def phase_chain_bench():
     return counts
 
 
+def k5_held(ax, b, md, mu, per_entry):
+    """K5 against its plain version within K5_RTOL (max |difference| over
+    max |plain|); returns K5's outputs, that ratio, the max |error| and
+    the case's label."""
+    m, r = ax.shape
+    got = fused_prox_dual(ax, b, md, mu, per_entry)
+    want = prox_dual_rows_plain(ax, b, md, mu, per_entry)
+    torch.cuda.synchronize()
+    rel = max(float((g - w).abs().max() / w.abs().max())
+              for g, w in zip(got, want))
+    label = f"({m}, {r}) {str(ax.dtype)[6:]} per_entry {per_entry}"
+    if not rel <= K5_RTOL[ax.dtype]:
+        raise RuntimeError(f"K5 disagrees with its plain version at "
+                           f"{label}: {rel:.3e} > {K5_RTOL[ax.dtype]}")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    return got, rel, err, label
+
+
 def phase2_k5(floor):
     """K5 against its plain version at K5_SHAPES, with the times of both,
     the host's cost of a call and the bound (each of ax, M, b, mu read
@@ -810,16 +928,7 @@ def phase2_k5(floor):
     out = {}
     for m, r, dtype, per_entry in K5_SHAPES:
         ax, b, md, mu = k5_inputs(m, r, dtype)
-        got = fused_prox_dual(ax, b, md, mu, per_entry)
-        want = prox_dual_rows_plain(ax, b, md, mu, per_entry)
-        torch.cuda.synchronize()
-        rel = max(float((g - w).abs().max() / w.abs().max())
-                  for g, w in zip(got, want))
-        label = f"({m}, {r}) {str(dtype)[6:]} per_entry {per_entry}"
-        if not rel <= K5_RTOL[dtype]:
-            raise RuntimeError(f"K5 disagrees with its plain version at "
-                               f"{label}: {rel:.3e} > {K5_RTOL[dtype]}")
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        got, rel, err, label = k5_held(ax, b, md, mu, per_entry)
         ms = cuda_ms(lambda: fused_prox_dual(ax, b, md, mu, per_entry))
         plain = cuda_ms(lambda: prox_dual_rows_plain(ax, b, md, mu,
                                                      per_entry))
@@ -836,7 +945,14 @@ def phase2_k5(floor):
         out[(m, r, dtype, per_entry)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, device_ms=dev, **bnd,
             library_ms=None)
-    return out[K5_SHAPES[0]]
+    first = dict(out[K5_SHAPES[0]])
+    for m, r, dtype, per_entry in K5_SHARDED_SHAPES:
+        _, rel, err, label = k5_held(*k5_inputs(m, r, dtype), per_entry)
+        first["max_abs_err"] = max(first["max_abs_err"], err)
+        print(f"[2 K5 fused_prox_dual] phase 10's {label}: max rel err "
+              f"{rel:.3e} (tol {K5_RTOL[dtype]}), max abs err {err:.3e} "
+              f"(held, not timed)", flush=True)
+    return first
 
 
 def k3_flops(it, r, m, n, nr=NR):
@@ -1040,6 +1156,36 @@ def print_k3_phases(args, kw):
           f"0 of lane 0 over {trips} trips: {fmt_split(split)}", flush=True)
 
 
+def k4_held(gen, g, m, k, n):
+    """K4 against its plain version (within K4_RTOL) and both against the
+    complex128 product (K4 within K4_C128_FACTOR x the plain version's
+    error), on operands drawn from ``gen``; returns the operands, both
+    products and the three errors."""
+    a, b = (Pair(*(torch.randn(g, rows, cols, generator=gen, device="cuda")
+                   for _ in range(2)))
+            for rows, cols in ((m, k), (k, n)))
+    got = pair_matmul(a, b)
+    want = pair_matmul_plain(a, b)
+    torch.cuda.synchronize()
+    rel = max(float((x - w).abs().max() / w.abs().max())
+              for x, w in zip(got, want))
+    if not rel <= K4_RTOL:
+        raise RuntimeError(f"K4 disagrees with its plain version at "
+                           f"{(g, m, k, n)}: {rel:.3e} > {K4_RTOL}")
+    exact = (torch.complex(*a).to(torch.complex128)
+             @ torch.complex(*b).to(torch.complex128))
+    scale = float(exact.abs().max())
+    err_k4, err_plain = (
+        float((torch.complex(*p).to(torch.complex128) - exact).abs().max())
+        / scale for p in (got, want))
+    if not err_k4 <= K4_C128_FACTOR * err_plain:
+        raise RuntimeError(
+            f"K4's error against complex128 at {(g, m, k, n)}, "
+            f"{err_k4:.3e}, is above {K4_C128_FACTOR} x the plain "
+            f"version's {err_plain:.3e}")
+    return a, b, got, want, rel, err_k4, err_plain
+
+
 def phase2_k4():
     """K4 against its plain version (TF32 off) at K4_SHAPES, both against
     the complex128 product, with the route the shape takes, the times of
@@ -1053,29 +1199,9 @@ def phase2_k4():
     out = {}
     with no_tf32():
         for g, m, k, n in K4_SHAPES:
-            a, b = (Pair(*(torch.randn(g, rows, cols, generator=gen,
-                                       device="cuda") for _ in range(2)))
-                    for rows, cols in ((m, k), (k, n)))
+            a, b, got, want, rel, err_k4, err_plain = k4_held(gen, g, m, k, n)
             which = k4_route(g, m, k, n)
-            got = pair_matmul(a, b)
-            want = pair_matmul_plain(a, b)
-            torch.cuda.synchronize()
-            rel = max(float((x - w).abs().max() / w.abs().max())
-                      for x, w in zip(got, want))
-            if not rel <= K4_RTOL:
-                raise RuntimeError(f"K4 disagrees with its plain version at "
-                                   f"{(g, m, k, n)}: {rel:.3e} > {K4_RTOL}")
             ac, bc = torch.complex(*a), torch.complex(*b)
-            exact = ac.to(torch.complex128) @ bc.to(torch.complex128)
-            scale = float(exact.abs().max())
-            err_k4, err_plain = (
-                float((torch.complex(*p).to(torch.complex128) - exact)
-                      .abs().max()) / scale for p in (got, want))
-            if not err_k4 <= K4_C128_FACTOR * err_plain:
-                raise RuntimeError(
-                    f"K4's error against complex128 at {(g, m, k, n)}, "
-                    f"{err_k4:.3e}, is above {K4_C128_FACTOR} x the plain "
-                    f"version's {err_plain:.3e}")
             ms = cuda_ms(lambda: pair_matmul(a, b))
             plain = cuda_ms(lambda: pair_matmul_plain(a, b))
             lib = cuda_ms(lambda: torch.matmul(ac, bc))
@@ -1106,7 +1232,17 @@ def phase2_k4():
                 max_abs_err=max_err(got, want), ms=ms, plain_ms=plain,
                 device_ms=dev, **bnd, library_ms=lib,
                 library_device_ms=lib_dev)
-    return out[K4_SHAPES[0]]
+        first = dict(out[K4_SHAPES[0]])
+        for g, m, k, n in K4_SHARDED_SHAPES:
+            *_, got, want, rel, err_k4, err_plain = k4_held(gen, g, m, k, n)
+            first["max_abs_err"] = max(first["max_abs_err"],
+                                       max_err(got, want))
+            print(f"[2 K4 pair_matmul] phase 10's ({g}, {m}, {k}) @ ({g}, "
+                  f"{k}, {n}), route {k4_route(g, m, k, n)}: max rel err "
+                  f"{rel:.3e} (tol {K4_RTOL}) | vs complex128: K4 "
+                  f"{err_k4:.3e}, plain {err_plain:.3e} (K4 at most "
+                  f"{K4_C128_FACTOR:g}x; held, not timed)", flush=True)
+    return first
 
 
 def build_solve_problem(seed=1, batch=SOLVE_BATCH, m=M, nt=NT, nr=NR):
@@ -1690,7 +1826,8 @@ def phase6_campaign(cold_k3):
           f"5's sector stream, {TRACK_WINDOWS} windows of {p} probes, "
           f"max_window 80: {TRACK_WINDOWS / wall:.2f} windows/s, "
           f"{1e3 * wall / TRACK_WINDOWS:.1f} ms per window | tracked NMSE "
-          f"median {np.median(db[1:]):.2f} dB (windows 1-9) | budgets "
+          f"median {np.median(db[1:]):.2f} dB (windows "
+          f"1-{TRACK_WINDOWS - 1}) | budgets "
           f"{trace.probe_budget.tolist()} | launches {counts} || phase 5's "
           f"K3 cold tracker: {cold_k3['wps']:.2f} windows/s, median "
           f"{cold_k3['ms']:.1f} ms per window, tracked NMSE median "
@@ -2698,6 +2835,234 @@ def phase9_zfree():
     return counts
 
 
+def sharded_solves(mesh, go=None):
+    """Phase 10's two solves on this rank of ``mesh``: the production
+    scaffold ``solve_lowrank_multi_sharded_pair`` (K4, K1, K2), then the
+    complex twin ``solve_lowrank_sharded`` (K5), each with the launch
+    counts set to 0 just before it and read just after.  With ``go`` (an
+    event), the problem is built and moved to the card first, and the
+    solves wait for the event.  Returns per solve its seconds, launches,
+    loop trips, all-reduces, iters, quality and each local instance's
+    NMSE (picklable)."""
+    a, b, x_true = build_solve_problem(batch=SHARDED_BATCH)
+    ac = torch.tensor(np.broadcast_to(a, (SHARDED_BATCH,) + a.shape),
+                      dtype=torch.complex64)
+    ac, bl = (t.to(mesh.device) for t in problem_sharding(
+        mesh, ac, torch.tensor(b, dtype=torch.float32)))
+    ap = Pair(ac.real.contiguous(), ac.imag.contiguous())
+    b0 = mesh.coords[0] * ac.shape[0]
+    x_loc = torch.as_tensor(x_true[b0:b0 + ac.shape[0]])
+    torch.cuda.synchronize()
+    if go is not None and not go.wait(SHARDED_TIMEOUT):
+        raise RuntimeError(f"no go within {SHARDED_TIMEOUT} s")
+    runs = (("pair", lambda: solve_lowrank_multi_sharded_pair(
+                mesh, torch.Generator().manual_seed(0), ap, bl, NT, NR,
+                SHARDED_CFG)),
+            ("complex", lambda: solve_lowrank_sharded(
+                mesh, ac[:SHARDED_COMPLEX_BATCH], bl[:SHARDED_COMPLEX_BATCH],
+                NT, NR, SHARDED_CFG)))
+    out = dict(coords=mesh.coords)
+    for name, solve in runs:
+        mesh.reduce.calls = mesh.reduce.trips = 0
+        admm.infer_admm.trips = 0
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = solve()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = launch_counts()
+        x = torch.complex(res.x.re, res.x.im) if name == "pair" else res
+        x = x.to(torch.complex128).cpu()
+        if not bool(torch.isfinite(torch.view_as_real(x)).all()):
+            raise RuntimeError(f"phase 10 {name}: non-finite recovery")
+        db = 10 * torch.log10(torch.clamp(nmse_h_projection(
+            x, x_loc[:len(x)]), min=1e-30))
+        out[name] = dict(
+            s=sec, launches=counts, trips=mesh.reduce.trips,
+            calls=mesh.reduce.calls, db=db.tolist(),
+            iters=(res.iters.tolist() if name == "pair"
+                   else admm.infer_admm.trips),
+            quality=res.quality.tolist() if name == "pair" else None)
+    return out
+
+
+def sharded_rank(rank, world, go):
+    """Run (ii)'s ranks: ``sharded_solves`` on a (1, world) mesh of ranks
+    sharing this card over gloo, once ``go`` is set."""
+    _build.library()
+    return sharded_solves(make_mesh(batch=1, rows=world, device="cuda"), go)
+
+
+def report_sharded(label, res):
+    """Print and check one rank's phase-10 solves; returns its launches."""
+    totals = {}
+    for name in ("pair", "complex"):
+        r = res[name]
+        need = (("pair_matmul", "fused_prox_dual_t", "fused_zprox_t")
+                if name == "pair" else ("fused_prox_dual",))
+        print(f"[10 {name}] {label}, rank {res['coords']}: {r['s']:.3f} s | "
+              f"loop trips {r['trips']}, iters {r['iters']} | all-reduces "
+              f"{r['calls']} ({r['calls'] / max(r['trips'], 1):.3f} a trip) "
+              f"| NMSE {[round(v, 2) for v in r['db']]} dB | quality "
+              f"{r['quality']} | launches {r['launches']}", flush=True)
+        require_launched(r["launches"], need, f"{label}'s {name} solve")
+        if r["launches"]["fused_infer_admm"]:
+            raise RuntimeError(f"{label}'s {name} solve launched K3")
+        if name == "pair" and (np.median(r["db"]) > SHARDED_DB_BAR
+                               or min(r["quality"]) < 0.98):
+            raise RuntimeError(f"{label}: median NMSE above "
+                               f"{SHARDED_DB_BAR} dB or a quality below 0.98")
+        if name == "complex" and max(r["db"]) > SHARDED_DB_BAR:
+            raise RuntimeError(f"{label}: the complex twin's NMSE above "
+                               f"{SHARDED_DB_BAR} dB at an instance")
+        for k, v in r["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def held_sharded(one, two):
+    """(ii)'s rank against (i): quality within SHARDED_Q_TOL, NMSE both at
+    most -60 dB or within SHARDED_DB_TOL."""
+    gaps = []
+    for name in ("pair", "complex"):
+        for k, (d1, d2) in enumerate(zip(one[name]["db"], two[name]["db"])):
+            if not ((d1 <= SHARDED_DB_BAR and d2 <= SHARDED_DB_BAR)
+                    or abs(d1 - d2) <= SHARDED_DB_TOL):
+                raise RuntimeError(f"phase 10 {name} instance {k}: "
+                                   f"{d2:.2f} dB on 2 ranks, {d1:.2f} on 1")
+            gaps.append(abs(d1 - d2))
+    dq = max(abs(q1 - q2) for q1, q2 in zip(one["pair"]["quality"],
+                                             two["pair"]["quality"]))
+    if dq > SHARDED_Q_TOL:
+        raise RuntimeError(f"phase 10: quality {dq:.2e} apart on 2 ranks")
+    return max(gaps), dq
+
+
+def phase10_entry():
+    """``entry()``'s step on the card against the same step on the CPU;
+    returns its launches."""
+    fn, args = entry()
+    fn(*args)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    ms = cuda_ms(lambda: fn(*args), reps=20)
+    fn_c, args_c = entry("cpu")
+    want = fn_c(*args_c)
+    err = 0.0
+    for idx in ((0, 1), (2, 3), (4, 5), (6, 7), (8,), (9,)):
+        scale_ = max(float(want[i].abs().max()) for i in idx)
+        err = max(err, max(float((got[i].cpu() - want[i]).abs().max())
+                           for i in idx) / max(scale_, 1e-30))
+    print(f"[10 entry] entry(): one admm_iteration_pair step, 16x16, m {M}, "
+          f"r {R}: {ms:.4f} ms (events) | card against the CPU's plain "
+          f"versions {err:.3e} (tol {ENTRY_RTOL}) | launches {counts}",
+          flush=True)
+    require_launched(counts, ("pair_matmul", "fused_prox_dual_t",
+                              "fused_zprox_t"), "entry()'s step")
+    if not err <= ENTRY_RTOL:
+        raise RuntimeError(f"entry(): {err:.3e} from the CPU's step")
+    return counts
+
+
+def phase10_sharded():
+    """Phase 10: the sharded paths on the card.  (i) One rank over NCCL
+    in this process, mesh (1, 1): ``solve_lowrank_multi_sharded_pair``
+    then ``solve_lowrank_sharded`` on the complex twin, and
+    ``entry()``'s step against the CPU.  (ii) Two ranks sharing this
+    card over gloo (NCCL refuses two ranks on one device), spawned once
+    at the phase's start, mesh (1, 2), m 512 rows a rank: the same two
+    solves once (i) is done, held against (i), beside
+    ``dryrun_multichip(1)`` and ``scaling_benchmark()`` at its defaults
+    (d = 1) in the one-rank world.  ``dryrun_multichip(2)`` must raise
+    on one card."""
+    import torch.distributed as dist
+
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    # (ii)'s ranks start first: they import, join their world and build
+    # the problem while (i) runs, then wait for ``go``
+    go = multiprocessing.get_context("spawn").Event()
+    two, dry = {}, {}
+
+    def run(out, fn, *args, **kw):
+        try:
+            out["value"] = fn(*args, **kw)
+        except BaseException as e:               # raised in this thread
+            out["error"] = e
+        out["done"] = time.perf_counter()
+
+    threads = [threading.Thread(target=run, args=(
+        two, spawn_ranks, sharded_rank, 2, (go,)), kwargs=dict(
+            device="cuda", backend="gloo", timeout=SHARDED_TIMEOUT))]
+    threads[0].start()
+    try:
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                                f"{free_port()}", world_size=1, rank=0)
+        try:
+            one = sharded_solves(make_mesh(batch=1, rows=1, device="cuda"))
+            add(report_sharded("(i) 1 rank, NCCL, mesh (1, 1)", one))
+            add(phase10_entry())
+            # from here (ii)'s solves, dryrun_multichip(1) (its child
+            # starts now) and scaling_benchmark() run side by side
+            t_go = time.perf_counter()
+            go.set()
+            threads.append(threading.Thread(target=run, args=(
+                dry, dryrun_multichip, 1)))
+            threads[1].start()
+            pts = scaling_benchmark()
+            print(f"[10 scaling] scaling_benchmark() at its defaults, beside "
+                  f"(ii)'s solves and the dry run: "
+                  f"{time.perf_counter() - t_go:.2f} s | "
+                  + " | ".join(f"d {d}: {p.recoveries_per_s:.3f} rec/s, "
+                               f"efficiency {p.efficiency:.3f}"
+                               for d, p in pts.items()), flush=True)
+            if list(pts) != [1]:
+                raise RuntimeError(f"scaling_benchmark ran counts "
+                                   f"{list(pts)}")
+        finally:
+            dist.destroy_process_group()
+    finally:
+        go.set()                   # (ii)'s ranks run out, the threads end
+        for t in threads:
+            t.join()
+    if "error" in dry:
+        raise RuntimeError("phase 10: dryrun_multichip(1) failed") \
+            from dry["error"]
+    print(f"[10 dryrun] dryrun_multichip(1): {dry['done'] - t_go:.2f} s | "
+          f"mesh {dry['value'][0]['shape']} | launches "
+          f"{dry['value'][0]['launches']}", flush=True)
+    try:
+        dryrun_multichip(2)
+    except ValueError as e:
+        print(f"[10 dryrun] dryrun_multichip(2) on one card raises: {e}",
+              flush=True)
+    else:
+        raise RuntimeError("dryrun_multichip(2) ran on one card")
+    if "error" in two:
+        raise RuntimeError("phase 10 (ii) failed") from two["error"]
+    for k, res in enumerate(two["value"]):
+        add(report_sharded("(ii) 2 ranks on one card, gloo, mesh (1, 2)",
+                           res))
+        db_gap, dq = held_sharded(one, res)
+        print(f"[10 held] (ii) rank {k} against (i): NMSE gap at most "
+              f"{db_gap:.3f} dB, quality gap {dq:.2e}", flush=True)
+    print(f"[10 ranks] (ii) spawned at the phase's start, "
+          f"{t_go - t0:.2f} s before its go; done {two['done'] - t_go:.2f} "
+          f"s after it", flush=True)
+    print(f"[10 sharded] phase 10: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return totals
+
+
 def main():
     t0 = time.perf_counter()
 
@@ -2734,6 +3099,8 @@ def main():
     done(8)
     add(phase9_testbed(bayes))
     done(9)
+    add(phase10_sharded())
+    done(10)
     sources = {"fused_prox_dual_t": ("twoace_tpu_torch/csrc/prox_dual.cu",
                                      "twoace_tpu/ops/pallas/kernels.py:121"),
                "fused_zprox_t": ("twoace_tpu_torch/csrc/zprox.cu",

@@ -6,6 +6,10 @@ arrays and torch tensors are built from those arrays and compared back in
 numpy.
 """
 
+import fcntl
+import os
+import pickle
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -17,6 +21,37 @@ from twoace_tpu_torch.ops.cplx import Pair as TPair
 
 # tier-1 runs several pytest workers: one torch thread each
 torch.set_num_threads(1)
+
+
+def shared_once(tmp_path_factory, name, fn):
+    """``fn()``'s value, computed once for the whole session and shared
+    by every xdist worker: pickled under the session's common temporary
+    root, behind a file lock (a module fixture alone would run once per
+    worker that draws one of the module's tests)."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    path = root / f"{name}.pkl"
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.exists():
+            with open(path, "rb") as f:
+                return pickle.load(f)
+        value = fn()
+        with open(path, "wb") as f:
+            pickle.dump(value, f)
+        return value
+
+
+def spawn_one_thread(fn, world, args=(), timeout=300.0):
+    """``spawn_ranks`` with one thread a rank: the session's workers
+    share the host's cores, and spinning thread pools slow each other
+    several times over."""
+    from twoace_tpu_torch.parallel import spawn_ranks
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        return spawn_ranks(fn, world, args, timeout=timeout)
 
 
 def require_cuda():

@@ -14,8 +14,15 @@ picks, codebook images and measurement providers (``sensing``); the
 mobility tracker (``pipeline.mobility``); the Monte-Carlo campaigns
 (``pipeline.simulation``: Vs_M, Vs_SNR, VS_SR, the trace sweep and
 windowed inference); the testbed driver (``pipeline.testbed``); the
-utilities (``utils``); and the CLI (``python -m twoace_tpu_torch``).
-Still to port: ``parallel``, the entry module and ``utils.plotting``.
+utilities (``utils``, the figures of ``utils.plotting`` too); the CLI
+(``python -m twoace_tpu_torch``); the multi-process path on
+``torch.distributed`` (``parallel``: the (batch x rows) mesh, the row-
+and batch-sharded A2 solvers and their complex twin); and the entry
+module (``twoace_tpu_torch.entry``: ``entry()`` and
+``dryrun_multichip``).  Nothing public of the JAX package is left to
+port, apart from the TPU workarounds the port leaves out (the Jacobi
+eigensolver, the real-symmetric embeddings, the MXU lane packing,
+``matmul_lowp``, ``eig_mode`` other than ``"perturb"``).
 """
 
 from . import interop  # noqa: F401

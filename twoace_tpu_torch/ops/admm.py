@@ -42,7 +42,7 @@ import torch
 
 from ..config import AdmmConfig
 from ..utils.rng import fold_in
-from .admm_loop import CHECK_EVERY
+from .admm_loop import CHECK_EVERY, RowHook, any_active, fused_row_sums
 from .kernels import fused_prox_dual
 from .pair_solver import no_tf32
 from .prox import (eigh_desc, nuclear_prox, profile_ladder,
@@ -105,7 +105,8 @@ def infer_admm(a, b, x0, *, scale_by_row: bool,
                prox: Optional[Callable] = None,
                u_mat=None, mu0: float = 1e-3, rho: float = 1.03,
                tol_rel: float = 1e-4, tol_abs: float = 1e-8,
-               maxiter: int = 500):
+               maxiter: int = 500, reduce: RowHook = None,
+               m_eff: Optional[int] = None):
     """One InferADMM solve of complex ``a`` (m, n), real ``b`` (m,) from
     ``x0`` (n, r).  Returns ``(x, y, converged)``: the best-so-far x (n, r)
     and y (m, r) with ``scale_by_row``, else the best column (n,), (m,).
@@ -116,10 +117,21 @@ def infer_admm(a, b, x0, *, scale_by_row: bool,
     Each trip: X-update, the Y-update and M-dual in K5, Z-prox, N-dual,
     best-so-far, the three residual tests, and ``mu *= rho`` when the
     combined residual shrank by less than 10%.
+
+    ``reduce``: the row-reduction hook of a row-sharded solve
+    (:mod:`..parallel.sharded_admm`; see :mod:`.admm_loop`): ``a``, ``b``
+    hold this shard's rows, ``u_mat`` (required) is built from the
+    all-reduced Gram, and each trip all-reduces the X-update's partial
+    A^H (Y - M/mu) and one buffer of the partial A^H Y with the sums of
+    squares over the rows; ``m_eff`` is the global row count of the
+    thresholds.  Not with the prox-free loop.
     """
     m, n = a.shape
     r = x0.shape[1]
     has_z = prox is not None
+    if reduce is not None and (not has_z or u_mat is None):
+        raise ValueError("a row-sharded solve needs a Z-prox and u_mat")
+    m_thr = m if m_eff is None else m_eff
     rdt = a.real.dtype
     dev = a.device
     ah = a.mH
@@ -127,13 +139,28 @@ def infer_admm(a, b, x0, *, scale_by_row: bool,
     if u_mat is None:
         u_mat = _precompute_u(a) if has_z else _pinv(a)
 
+    def ah_sum(yy):
+        """A^H Y summed over the row shards: all-reduce (a)."""
+        part = ah @ yy
+        return part if reduce is None else reduce.sum_(part)
+
     x = x0
     ax = a @ x
-    if scale_by_row:
-        x = x * (_norm(b) / torch.clamp(_norm(ax), min=1e-30)).to(a.dtype)
+    if reduce is None:
+        bn = _norm(b)
+        if scale_by_row:
+            nax = _norm(ax)
+        else:
+            col = torch.linalg.vector_norm(ax, dim=0)
     else:
-        col = torch.linalg.vector_norm(ax, dim=0)
-        x = x * (_norm(b) / torch.clamp(col, min=1e-30)).to(a.dtype)[None, :]
+        s2 = reduce.sum_(torch.cat([_fro2(b)[None], torch.sum(
+            ax.real ** 2 + ax.imag ** 2, dim=0)]))
+        bn, col = torch.sqrt(s2[0]), torch.sqrt(s2[1:])
+        nax = torch.sqrt(torch.sum(s2[1:]))
+    if scale_by_row:
+        x = x * (bn / torch.clamp(nax, min=1e-30)).to(a.dtype)
+    else:
+        x = x * (bn / torch.clamp(col, min=1e-30)).to(a.dtype)[None, :]
     ax = a @ x
     y = project_rows_to_magnitude(ax, b, scale_by_row)
 
@@ -146,7 +173,7 @@ def infer_admm(a, b, x0, *, scale_by_row: bool,
     k_opt = (r,) if scale_by_row else ()
     c = dict(y=y, z=prox(x, scalar(1.0)) if has_z else None,
              m_dual=zeros(m, r), n_dual=zeros(n, r) if has_z else None,
-             aty=ah @ y, mu=scalar(mu0), last_res=scalar(math.inf),
+             aty=ah_sum(y), mu=scalar(mu0), last_res=scalar(math.inf),
              opt_obj=scalar(math.inf), opt_x=zeros(n, *k_opt),
              opt_y=zeros(m, *k_opt), it=scalar(0, torch.int32),
              done=scalar(False, torch.bool))
@@ -155,7 +182,7 @@ def infer_admm(a, b, x0, *, scale_by_row: bool,
         y0, z0, aty0, mu = c["y"], c["z"], c["aty"], c["mu"]
         # X-update (ref :401-409 / inferMinL2.m:337-345)
         if has_z:
-            x = u_mat @ (ah @ (y0 - c["m_dual"] / mu)
+            x = u_mat @ (ah_sum(y0 - c["m_dual"] / mu)
                          + (z0 - c["n_dual"] / mu))
         else:
             x = u_mat @ (y0 - c["m_dual"] / mu)
@@ -165,6 +192,24 @@ def infer_admm(a, b, x0, *, scale_by_row: bool,
                                     per_entry=not scale_by_row)
         aty = ah @ y
         j_m = ax - y
+        # the objective's residuals over the rows (ref :343-361)
+        if scale_by_row:
+            amp = torch.sqrt(torch.sum(ax.real ** 2 + ax.imag ** 2, dim=1))
+            res = amp - b                                       # (m,)
+        else:
+            res = torch.abs(ax) - b[:, None]                    # (m, r)
+        if reduce is None:
+            obj_all = _norm(res) if scale_by_row \
+                else torch.linalg.vector_norm(res, dim=0)
+            nax2, ny2, njm2, ndy2 = _fro2(ax), _fro2(y), _fro2(j_m), \
+                _fro2(y - y0)
+        else:
+            (aty,), obj_all, sums = fused_row_sums(
+                reduce, (torch.view_as_real(aty),),
+                torch.sum(res * res, dim=0),
+                [torch.stack([_fro2(p) for p in (ax, y, j_m, y - y0)])])
+            aty = torch.view_as_complex(aty)
+            nax2, ny2, njm2, ndy2 = sums[0]
         if has_z:
             # Z-update (ref :423-485) and N-dual (ref :338-341)
             z = prox(x + c["n_dual"] / mu, mu)
@@ -175,36 +220,36 @@ def infer_admm(a, b, x0, *, scale_by_row: bool,
 
         # best-so-far (ref :343-361)
         if scale_by_row:
-            amp = torch.sqrt(torch.sum(ax.real ** 2 + ax.imag ** 2, dim=1))
-            obj = _norm(amp - b)
+            obj = obj_all
             x_best, y_best = x, y
         else:
-            objs = torch.linalg.vector_norm(torch.abs(ax) - b[:, None], dim=0)
+            objs = obj_all
             j = torch.argmin(objs)                       # first on ties
             obj = objs[j]
             x_best = x.index_select(1, j[None])[:, 0]
             y_best = y.index_select(1, j[None])[:, 0]
         better = obj < c["opt_obj"]
 
-        # convergence tests (ref :363-375 / inferMinL2.m:303-315)
-        nax, ny, naty = _norm(ax), _norm(y), _norm(aty)
+        # convergence tests (ref :363-375 / inferMinL2.m:303-315); the
+        # row sums are global
+        nax, ny, naty = torch.sqrt(nax2), torch.sqrt(ny2), _norm(aty)
         if has_z:
             nx, nz = _norm(x), _norm(z)
             dz2 = _fro2(z - z0)
-            res_prim = torch.sqrt(_fro2(j_m) + _fro2(j_n))
+            res_prim = torch.sqrt(njm2 + _fro2(j_n))
             res_dual = mu * torch.sqrt(_fro2(aty - aty0) + dz2)
-            res_comb = torch.sqrt(res_prim ** 2 + _fro2(y - y0) + dz2)
+            res_comb = torch.sqrt(res_prim ** 2 + ndy2 + dz2)
             big = torch.maximum(nax, ny) ** 2 + torch.maximum(nx, nz) ** 2
-            t_prim = (tol_abs * math.sqrt((m + n) * r)
+            t_prim = (tol_abs * math.sqrt((m_thr + n) * r)
                       + tol_rel * torch.sqrt(big))
             t_dual = (tol_abs * math.sqrt(n * r * 2)
                       + tol_rel * torch.sqrt(naty ** 2 + nz ** 2))
-            t_comb = (tol_abs * math.sqrt((m + n) * r * 2)
+            t_comb = (tol_abs * math.sqrt((m_thr + n) * r * 2)
                       + tol_rel * torch.sqrt(big + ny ** 2 + nz ** 2))
         else:
-            res_prim = _norm(j_m)
+            res_prim = torch.sqrt(njm2)
             res_dual = mu * _norm(aty - aty0)
-            res_comb = torch.sqrt(res_prim ** 2 + _fro2(y - y0))
+            res_comb = torch.sqrt(res_prim ** 2 + ndy2)
             t_prim = (tol_abs * math.sqrt(m * r)
                       + tol_rel * torch.maximum(nax, ny))
             t_dual = tol_abs * math.sqrt(n * r) + tol_rel * naty
@@ -223,8 +268,10 @@ def infer_admm(a, b, x0, *, scale_by_row: bool,
                     it=c["it"] + 1, done=converged)
 
     for trip in range(maxiter):
-        if trip and trip % CHECK_EVERY == 0 and bool(c["done"]):
+        if trip and trip % CHECK_EVERY == 0 and _all_done(c["done"], reduce):
             break
+        if reduce is not None:
+            reduce.trips += 1
         new = body(c)
         keep = c["done"]
         c = {k: None if new[k] is None else torch.where(keep, c[k], new[k])
@@ -234,6 +281,14 @@ def infer_admm(a, b, x0, *, scale_by_row: bool,
 
 
 infer_admm.trips = 0
+
+
+def _all_done(done, reduce: RowHook) -> bool:
+    """The loop's exit test, read on the host; a row-sharded solve
+    all-reduces its any-active flag with MAX first."""
+    if reduce is None:
+        return bool(done)
+    return not any_active(~done, reduce)
 
 
 def _quality(a_test, b_test, x):

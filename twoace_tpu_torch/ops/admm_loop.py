@@ -18,6 +18,17 @@ of one batched product per group.  Each lane carries a
 meaning (the trips each lane ran).  Whether any lane is still active is
 read on the host once every ``CHECK_EVERY`` trips; the extra frozen trips
 change nothing.
+
+With a row-reduction hook (``reduce``) the lanes' measurement rows are
+sharded over processes (:mod:`..parallel.sharded_pair`): A, b, Y and the
+M-dual hold this shard's rows, while X, Z, the N-dual, the basis and mu
+are replicated.  Each trip then makes two all-reduces over the shards:
+the X-update's partial A^H (Y - M/mu), and one flat buffer holding the
+partial A^H Y with every sum of squares over the rows (||AX||^2,
+||Y||^2, ||J_m||^2, ||Y - Y0||^2 and the objective's squared residuals,
+per lane, or per column in the per-column pass); the square roots are
+taken after the sum.  The any-active flag read every ``CHECK_EVERY``
+trips is all-reduced with MAX, so no shard leaves the loop alone.
 """
 
 from __future__ import annotations
@@ -94,6 +105,35 @@ ProxDual = Callable
 #: ``z_prox(z_in, v_basis, mu) -> (z_new, v_new)`` on lanes; None for
 #: the Z-free loop
 ZProx = Optional[Callable]
+#: the row-reduction hook of a row-sharded solve: ``sum_(t)`` and
+#: ``max_(t)`` all-reduce a tensor in place over the row shards and
+#: return it; ``trips`` counts the loop trips run with it
+#: (:class:`..parallel.mesh.RowReduce`); None for a solve on one shard
+RowHook = Optional[object]
+
+
+def any_active(active: torch.Tensor, reduce: RowHook) -> bool:
+    """Whether any lane is still active, read on the host; with a hook
+    the flag is all-reduced with MAX over the shards first."""
+    if reduce is None:
+        return bool(active.any())
+    return bool(reduce.max_(active.any().to(torch.int32).reshape(1)))
+
+
+def fused_row_sums(reduce, aty, res2, sq):
+    """All-reduce (b) of a row-sharded trip, for the per-op and the
+    complex loop: one flat float buffer holding the partial A^H Y (the
+    real tensors ``aty``: a pair's planes, or a complex tensor seen as
+    real), the objective's squared residuals ``res2``, already summed
+    over this shard's rows, and the squared norms ``sq``.  Returns
+    ``(aty, obj, sums)``: the summed tensors of ``aty``, obj the square
+    root of the summed ``res2``, sums those of ``sq``."""
+    parts = (*aty, *sq, res2)
+    buf = reduce.sum_(torch.cat([t.reshape(-1) for t in parts]))
+    out = torch.split(buf, [t.numel() for t in parts])
+    out = [o.view(t.shape) for o, t in zip(out, parts)]
+    k = len(aty)
+    return tuple(out[:k]), torch.sqrt(out[-1]), tuple(out[k:-1])
 
 
 def _contiguous(p: Pair) -> Pair:
@@ -104,7 +144,8 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
               mu0, *, scale_by_row: bool, pair_gemm: PairGemm,
               prox_dual: ProxDual, z_prox: ZProx, rho: float, tol_rel: float,
               tol_abs: float, maxiter: int, warm_iters: int = 0,
-              anchor: Optional[Pair] = None):
+              anchor: Optional[Pair] = None, reduce: RowHook = None,
+              m_eff: Optional[int] = None):
     """The loop of every lane from its prepared state.
 
     ``a``: (G, m, n); ``b``: (G, P, m); ``u_mat``: (G, n, n), the inverse
@@ -116,6 +157,10 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
     as given.  ``anchor``: the proximal anchor's pull
     ``anchor_weight * anchor``, broadcastable to (G, P, r, n), added to
     the X-update's right-hand side (U must carry the matching ridge).
+    ``reduce``: the row-reduction hook of a row-sharded solve (see the
+    module's docstring), with ``m_eff`` the active global row count of
+    the residual thresholds (default: this shard's m); not with the
+    Z-free loop, whose X-update solves over the rows.
 
     Each trip: X-update against conj(U), magnitude prox with the M-dual
     update, Z-prox, N-dual update, best-so-far tracking, the three
@@ -134,6 +179,10 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
     g_, p_, r, m = y.re.shape
     n = z.re.shape[-1]
     n_lanes = g_ * p_
+    has_z = z_prox is not None
+    if reduce is not None and not has_z:
+        raise ValueError("the Z-free loop has no row-sharded form")
+    m_thr = m if m_eff is None else m_eff
     a_t = _contiguous(transpose(a))                             # (G, n, m)
     a_conj = _contiguous(conj(a))                               # (G, m, n)
     u_conj = _contiguous(conj(u_mat))                           # U^T
@@ -146,6 +195,14 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
     def ah_mul(yy):
         return gemm(yy, a_conj, pair_gemm)
 
+    def ah_sum(yy):
+        """A^H Y summed over the row shards: all-reduce (a)."""
+        part = ah_mul(yy)
+        if reduce is None:
+            return part
+        buf = reduce.sum_(torch.stack([part.re, part.im]))
+        return Pair(buf[0], buf[1])
+
     def zeros(*shape):
         return Pair(torch.zeros(shape, dtype=f32, device=dev),
                     torch.zeros(shape, dtype=f32, device=dev))
@@ -156,12 +213,10 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
     k_opt = r if scale_by_row else 1
     state = _State(
         y=y, z=z, m_dual=zeros(g_, p_, r, m), n_dual=zeros(g_, p_, r, n),
-        aty=ah_mul(y), v_basis=v_basis, mu=mu0,
+        aty=ah_sum(y), v_basis=v_basis, mu=mu0,
         last_res=full(math.inf), opt_obj=full(math.inf),
         opt_x=zeros(g_, p_, k_opt, n), opt_y=zeros(g_, p_, k_opt, m),
         it=full(0, torch.int32), converged=full(False, torch.bool))
-
-    has_z = z_prox is not None
 
     def body(c: _State) -> _State:
         mu = c.mu
@@ -170,7 +225,7 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
         # X-update (ref :401-409); the anchor's pull joins the rhs
         t = Pair(c.y.re - c.m_dual.re * inv4, c.y.im - c.m_dual.im * inv4)
         if has_z:
-            rhs = add(ah_mul(t), Pair(c.z.re - c.n_dual.re * inv4,
+            rhs = add(ah_sum(t), Pair(c.z.re - c.n_dual.re * inv4,
                                       c.z.im - c.n_dual.im * inv4))
             if anchor is not None:
                 rhs = add(rhs, anchor)
@@ -184,6 +239,23 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
         yn, m_dual = groups(yn, g_), groups(m_dual, g_)
         aty = ah_mul(yn)
         j_m = sub(ax, yn)
+        # the objective's residuals over the rows (ref :343-361)
+        if scale_by_row:
+            amp = torch.sqrt(torch.clamp(
+                torch.sum(ax.re ** 2 + ax.im ** 2, dim=-2), min=0.0))
+            res = amp - b                                       # (G, P, m)
+        else:
+            amp = torch.sqrt(torch.clamp(ax.re ** 2 + ax.im ** 2, min=0.0))
+            res = amp - b[..., None, :]                         # (G, P, r, m)
+        if reduce is None:
+            obj_all = torch.linalg.vector_norm(res, dim=-1)
+            nax2, ny2, njm2, ndy2 = (fro2(ax), fro2(yn), fro2(j_m),
+                                     fro2(sub(yn, c.y)))
+        else:
+            aty, obj_all, (nax2, ny2, njm2, ndy2) = fused_row_sums(
+                reduce, aty, torch.sum(res * res, dim=-1),
+                [fro2(p) for p in (ax, yn, j_m, sub(yn, c.y))])
+            aty = Pair(*aty)
         if has_z:
             # Z-update (ref :423-485)
             z_in = Pair(x.re + c.n_dual.re * inv4, x.im + c.n_dual.im * inv4)
@@ -199,13 +271,10 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
 
         # best-so-far (ref :343-361)
         if scale_by_row:
-            amp = torch.sqrt(torch.clamp(
-                torch.sum(ax.re ** 2 + ax.im ** 2, dim=-2), min=0.0))
-            obj = torch.linalg.vector_norm(amp - b, dim=-1)     # (G, P)
+            obj = obj_all                                       # (G, P)
             x_best, y_best = x, yn
         else:
-            amp = torch.sqrt(torch.clamp(ax.re ** 2 + ax.im ** 2, min=0.0))
-            objs = torch.linalg.vector_norm(amp - b[..., None, :], dim=-1)
+            objs = obj_all
             j = torch.argmin(objs, dim=-1, keepdim=True)      # first on ties
             obj = torch.gather(objs, -1, j)[..., 0]
 
@@ -220,25 +289,25 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
         opt_y = where(better, y_best, c.opt_y)
         opt_obj = torch.minimum(obj, c.opt_obj)
 
-        # convergence tests (ref :363-375)
-        nax, ny, naty = norm(ax), norm(yn), norm(aty)
+        # convergence tests (ref :363-375); the row sums are global
+        nax, ny, naty = torch.sqrt(nax2), torch.sqrt(ny2), norm(aty)
         if has_z:
             nx, nz = norm(x), norm(zn)
-            res_prim = torch.sqrt(fro2(j_m) + fro2(j_n))
+            res_prim = torch.sqrt(njm2 + fro2(j_n))
             dz2 = fro2(sub(zn, c.z))
             res_dual = mu * torch.sqrt(fro2(sub(aty, c.aty)) + dz2)
-            res_comb = torch.sqrt(res_prim ** 2 + fro2(sub(yn, c.y)) + dz2)
+            res_comb = torch.sqrt(res_prim ** 2 + ndy2 + dz2)
             big = torch.maximum(nax, ny) ** 2 + torch.maximum(nx, nz) ** 2
-            t_prim = (tol_abs * math.sqrt((m + n) * r)
+            t_prim = (tol_abs * math.sqrt((m_thr + n) * r)
                       + tol_rel * torch.sqrt(big))
             t_dual = (tol_abs * math.sqrt(n * r * 2)
                       + tol_rel * torch.sqrt(naty ** 2 + nz ** 2))
-            t_comb = (tol_abs * math.sqrt((m + n) * r * 2)
+            t_comb = (tol_abs * math.sqrt((m_thr + n) * r * 2)
                       + tol_rel * torch.sqrt(big + ny ** 2 + nz ** 2))
         else:
-            res_prim = norm(j_m)
+            res_prim = torch.sqrt(njm2)
             res_dual = mu * norm(sub(aty, c.aty))
-            res_comb = torch.sqrt(res_prim ** 2 + fro2(sub(yn, c.y)))
+            res_comb = torch.sqrt(res_prim ** 2 + ndy2)
             big = torch.maximum(nax, ny)
             t_prim = tol_abs * math.sqrt(m * r) + tol_rel * big
             t_dual = tol_abs * math.sqrt(n * r) + tol_rel * naty
@@ -255,8 +324,10 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
     def run(c: _State, bound: int) -> _State:
         for trip in range(bound):
             active = (c.it < bound) & ~c.converged
-            if trip % CHECK_EVERY == 0 and not bool(active.any()):
+            if trip % CHECK_EVERY == 0 and not any_active(active, reduce):
                 break
+            if reduce is not None:
+                reduce.trips += 1
             new = body(c)
             c = _State(*(where(active, nv, ov) for nv, ov in zip(new, c)))
         return c

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from ..config import AdmmConfig
-from .admm_loop import admm_loop, gemm, groups, lanes, norm, where
+from .admm_loop import RowHook, admm_loop, gemm, groups, lanes, norm, where
 from .cplx import (LadderArrays, Pair, from_complex, magnitude_prox_cols_elem,
                    scale, to_complex, transpose)
 from .kernels import (fused_infer_admm, fused_prox_dual_t, fused_zprox_t,
@@ -93,13 +93,17 @@ class PairAdmmResult(NamedTuple):
 # ---------------------------------------------------------------------------
 # setup (plain torch: Cholesky, QR, eigh)
 
-def precompute_u_pair(a: Pair, reg: float = 1.0) -> Pair:
+def precompute_u_pair(a: Pair, reg: float = 1.0,
+                      reduce: RowHook = None) -> Pair:
     """U = inv(A^H A + reg I) of each (..., m, n) codebook block, by
     complex Cholesky and a triangular solve.  ref: inferLowRankV4_multi.m:241-247.
+    With ``reduce`` (a row-sharded block) the Gram is all-reduced first.
     """
     ac = to_complex(a)
     n = ac.shape[-1]
     g = ac.mH @ ac
+    if reduce is not None:
+        g = reduce.sum_(g)
     eye = torch.eye(n, dtype=ac.dtype, device=ac.device)
     g = 0.5 * (g + g.mH) + reg * eye
     c = torch.linalg.cholesky(g)
@@ -127,19 +131,32 @@ def spectral_initialize_pair(a: Pair, b, r: int,
     ref: inferLowRankV4_multi.m:561-574.  The start block is drawn from
     ``generator`` on the CPU, so a seed gives the same init on any device.
     """
+    gram = scaled_gram_pair(a, b)
+    g_, p_, n, _ = gram.shape
+    r = min(r, a.re.shape[-2], n)
+    q = torch.randn((g_, p_, n, r), dtype=torch.complex64,
+                    generator=generator)
+    return top_r_init(gram, q, iters)
+
+
+def scaled_gram_pair(a: Pair, b) -> torch.Tensor:
+    """The spectral init's Gram sum_i (b_i/||A_i||)^2 A_i^H A_i of every
+    lane, complex (G, P, n, n), not yet made Hermitian; a row with
+    ||A_i|| = 0 (a masked row) adds nothing."""
     ac = to_complex(a)
-    g_, m, n = ac.shape
-    p_ = b.shape[1]
-    r = min(r, m, n)
     row_norm = torch.sqrt(torch.clamp(torch.sum(ac.real ** 2 + ac.imag ** 2,
                                                 dim=-1), min=1e-30))
     s = torch.where(row_norm[:, None, :] > 1e-15,
                     b / row_norm[:, None, :], 1.0)             # (G, P, m)
-    gram = (ac.mH[:, None] * (s * s)[..., None, :]) @ ac[:, None]
-    gram = 0.5 * (gram + gram.mH)                              # (G, P, n, n)
-    q = torch.randn((g_, p_, n, r), dtype=torch.complex64,
-                    generator=generator).to(ac.device)
-    q = torch.linalg.qr(q).Q
+    return (ac.mH[:, None] * (s * s)[..., None, :]) @ ac[:, None]
+
+
+def top_r_init(gram: torch.Tensor, q: torch.Tensor, iters: int = 12) -> Pair:
+    """X0^T (G, P, r, n) from the scaled Gram (G, P, n, n) and the start
+    block ``q`` (G, P, n, r), complex64 on the CPU: orthogonal iteration,
+    Rayleigh-Ritz ``eigh``, eigenvectors scaled by sqrt(eigenvalue)."""
+    gram = 0.5 * (gram + gram.mH)
+    q = torch.linalg.qr(q.to(gram.device)).Q
     for _ in range(iters):
         q = torch.linalg.qr(gram @ q).Q
     rr = q.mH @ (gram @ q)
@@ -219,7 +236,8 @@ def _contiguous(p: Pair) -> Pair:
 
 def admm_init_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool, nt: int,
                    nr: int, ladder: Optional[LadderArrays],
-                   prox_kind: str = "spectral_profile"):
+                   prox_kind: str = "spectral_profile",
+                   reduce: RowHook = None):
     """Initialization of every lane's InferADMM solve (ref :300-321).
 
     Scales x0 to the measurements, projects A x0 onto the magnitudes b,
@@ -229,17 +247,28 @@ def admm_init_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool, nt: int,
     Z.  Returns ``(y, z, v_basis)``, the state the loop starts from;
     v_basis is (G, P, nr, nr) in the E-convention (a (G, P, 1, 1)
     placeholder for the nuclear prox; z and v_basis both are for the
-    Z-free branch).
+    Z-free branch).  With ``reduce`` (row-sharded blocks) the norms of b
+    and A x0 are summed over the shards in one all-reduce.
     """
     g_, p_ = x0.re.shape[:2]
     a_t = transpose(a)
     ax = gemm(x0, a_t)
-    bn = torch.linalg.vector_norm(b, dim=-1)                    # (G, P)
-    if scale_by_row:
-        x = scale(x0, (bn / torch.clamp(norm(ax), min=1e-30))[..., None, None])
+    if reduce is None:
+        bn = torch.linalg.vector_norm(b, dim=-1)                # (G, P)
+        if scale_by_row:
+            nax = norm(ax)
+        else:
+            col2 = torch.sum(ax.re ** 2 + ax.im ** 2, dim=-1)   # (G, P, r)
     else:
-        col = torch.sqrt(torch.clamp(torch.sum(ax.re ** 2 + ax.im ** 2,
-                                               dim=-1), min=1e-30))
+        s2 = reduce.sum_(torch.cat([
+            torch.sum(b * b, dim=-1)[..., None],
+            torch.sum(ax.re ** 2 + ax.im ** 2, dim=-1)], dim=-1))
+        bn, col2 = torch.sqrt(s2[..., 0]), s2[..., 1:]
+        nax = torch.sqrt(torch.sum(col2, dim=-1))
+    if scale_by_row:
+        x = scale(x0, (bn / torch.clamp(nax, min=1e-30))[..., None, None])
+    else:
+        col = torch.sqrt(torch.clamp(col2, min=1e-30))
         x = scale(x0, (bn[..., None] / col)[..., None])
     y = project_cols_to_magnitude(gemm(x, a_t), b, scale_by_row)
     zero = torch.zeros(g_, p_, 1, 1, dtype=torch.float32, device=x.re.device)
@@ -260,7 +289,8 @@ def infer_admm_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool,
                     tol_rel: float = 1e-4, tol_abs: float = 1e-8,
                     maxiter: int = 500, warm_iters: int = 0,
                     anchor: Optional[Pair] = None,
-                    anchor_weight: float = 0.0, fused_loop: bool = True):
+                    anchor_weight: float = 0.0, fused_loop: bool = True,
+                    reduce: RowHook = None, m_eff: Optional[int] = None):
     """One InferADMM solve of every lane (ref: inferLowRankV4_multi.m:281-386).
 
     ``a``: (G, m, n) codebook blocks; ``b``: (G, P, m); ``x0``:
@@ -287,6 +317,11 @@ def infer_admm_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool,
     per launch, K4 in 3xTF32 tensor-core tiles or split-K on the CUDA
     cores: float32-class either way.
 
+    ``reduce`` and ``m_eff``: a row-sharded solve (:mod:`.admm_loop`):
+    ``a``, ``b`` hold this shard's rows, and the solve runs the per-op
+    loop, whose trips all-reduce over the shards (K3 cannot hold a
+    collective); ``u_mat`` is then computed from the all-reduced Gram.
+
     Returns ``(opt_x, opt_y, converged, it)``: opt_x (G, P, r, n) with
     ``scale_by_row``, else the best column (G, P, 1, n); ``it`` (G, P)
     counts each lane's own trips.
@@ -304,21 +339,24 @@ def infer_admm_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool,
                          "into U internally")
     if u_mat is None:
         u_mat = precompute_u_pair(
-            a, reg=1.0 + (anchor_weight if anchored else 0.0)) if has_z \
-            else pinv_u_pair(a)
+            a, reg=1.0 + (anchor_weight if anchored else 0.0),
+            reduce=reduce) if has_z else pinv_u_pair(a)
     g_, p_ = x0.re.shape[:2]
     y, z, v_basis = admm_init_pair(a, b, x0, scale_by_row=scale_by_row,
                                    nt=nt, nr=nr, ladder=ladder,
-                                   prox_kind=prox_kind)
+                                   prox_kind=prox_kind, reduce=reduce)
     mu = torch.full((g_, p_), mu0, dtype=torch.float32, device=x0.re.device)
     kw = dict(scale_by_row=scale_by_row, rho=rho, tol_rel=tol_rel,
               tol_abs=tol_abs, maxiter=maxiter)
+    if reduce is not None:
+        kw.update(reduce=reduce, m_eff=m_eff)
 
     if not has_z:
         z_prox = None
     elif prox_kind == "spectral_profile":
         lad = _lane_ladder(ladder, g_, p_)
-        if fused_loop and not anchored and warm_iters == 0:
+        if fused_loop and not anchored and warm_iters == 0 \
+                and reduce is None:
             return fused_infer_admm(
                 _contiguous(a), b.contiguous(), _contiguous(u_mat),
                 _contiguous(y), _contiguous(z), _contiguous(v_basis), mu, lad,
@@ -368,15 +406,17 @@ def _pass_bounds(cfg: AdmmConfig):
 
 def _impl_pair(a: Pair, b, xs: Pair, nt: int, nr: int, cfg: AdmmConfig,
                ladder: Optional[LadderArrays], u_mat: Pair,
-               prox_kind: str = "spectral_profile", fused_loop: bool = True):
+               prox_kind: str = "spectral_profile", fused_loop: bool = True,
+               reduce: RowHook = None, m_eff: Optional[int] = None):
     """inferLowRankImpl of every lane (ref :111-271): the scale_by_row
-    pass, column orthonormalization, then the per-column pass.
+    pass, column orthonormalization, then the per-column pass; row-sharded
+    with ``reduce`` (see :func:`infer_admm_pair`).
     Returns ``(x (G, P, 1, n), converged, it (G, P, 2))``."""
     b1, b2 = _pass_bounds(cfg)
     kw = dict(nt=nt, nr=nr, ladder=ladder, u_mat=u_mat, prox_kind=prox_kind,
               mu0=cfg.mu0, rho=cfg.rho, tol_rel=cfg.tol_rel,
               tol_abs=cfg.tol_abs, warm_iters=cfg.warm_iters,
-              fused_loop=fused_loop)
+              fused_loop=fused_loop, reduce=reduce, m_eff=m_eff)
     x, _, _, it1 = infer_admm_pair(a, b, xs, scale_by_row=True, maxiter=b1,
                                    **kw)
     x = _orthonormalize_cols_t(x)
@@ -479,40 +519,61 @@ def _batch_retry(fp: _FirstPass, rest_idx, inst_idx, trains, tests,
     return Pair(x.re[:, 0, 0], x.im[:, 0, 0]), q[:, 0], it.sum(-1)[:, 0]
 
 
+def _refine_best(a_n: Pair, b_n, x: Pair, q, rank_one,
+                 lad_normal: Optional[LadderArrays],
+                 lad_r1: Optional[LadderArrays], nt: int, nr: int,
+                 cfg: AdmmConfig, prox_kind: str, shared: bool,
+                 reduce: RowHook = None, m_eff: Optional[int] = None):
+    """Stage 3 of the batch scaffolds: best restart per instance (first
+    max on ties), its full-data refine on the ladder the restart's
+    rank-one flag picks, the similarity rollback
+    (ref: inferLowRankV4_multi.m:79-101).
+
+    ``x`` (B, R, n), ``q`` and ``rank_one`` (B, R), instance-major.
+    ``shared``: the instances ride one group as lanes through one
+    codebook, ``a_n`` (1, m, n) and ``b_n`` (1, B, m); else each is its
+    own group, ``a_n`` (B, m, n) and ``b_n`` (B, 1, m), as a row-sharded
+    solve holds them (``reduce``, ``m_eff``: see :func:`infer_admm_pair`).
+    Returns ``(x (B, n) before the rescale, q_max (B,), the refine's
+    trips (B,))``."""
+    batch, _, n = x.re.shape
+    ar = torch.arange(batch, device=q.device)
+    j = torch.argmax(q, dim=1)                                  # (B,)
+    q_max = q[ar, j]
+    lead = (1, batch) if shared else (batch, 1)
+    x_max = Pair(x.re[ar, j].view(*lead, 1, n), x.im[ar, j].view(*lead, 1, n))
+    lad = None
+    if prox_kind != "nuclear":
+        r1 = rank_one[ar, j].view(*lead, 1)
+        lad = LadderArrays(torch.where(r1, lad_r1.ranks, lad_normal.ranks),
+                           torch.where(r1, lad_r1.fracs, lad_normal.fracs))
+    x_ref, _, _, it_ref = infer_admm_pair(
+        a_n, b_n, x_max, scale_by_row=True, nt=nt, nr=nr, ladder=lad,
+        u_mat=precompute_u_pair(a_n, reduce=reduce), prox_kind=prox_kind,
+        mu0=cfg.mu0, rho=cfg.rho, tol_rel=cfg.tol_rel, tol_abs=cfg.tol_abs,
+        maxiter=cfg.maxiter, fused_loop=False, reduce=reduce, m_eff=m_eff)
+    xo = _rollback(x_max, x_ref, q_max.view(lead), cfg)
+    return (Pair(xo.re.reshape(batch, n), xo.im.reshape(batch, n)), q_max,
+            it_ref.reshape(batch))
+
+
 def _batch_refine(fp: _FirstPass, x: Pair, q, it_sum, rank_one,
                   lad_normal: Optional[LadderArrays],
                   lad_r1: Optional[LadderArrays],
                   nt: int, nr: int, cfg: AdmmConfig,
                   prox_kind: str = "spectral_profile") -> PairAdmmResult:
-    """Stage 3: best restart per instance (first max on ties), full-data
-    refinement with similarity rollback, rescale
-    (ref: inferLowRankV4_multi.m:79-107).  ``x`` (R, B, n), ``q`` and
-    ``rank_one`` (R, B).  The rank-one flag of the selected restart picks
-    that instance's ladder."""
-    batch = q.shape[1]
-    ar = torch.arange(batch, device=q.device)
-    j = torch.argmax(q, dim=0)                                  # (B,)
-    q_max = q[j, ar]
-    lad = None
-    if prox_kind != "nuclear":
-        r1 = rank_one[j, ar][:, None]
-        lad = LadderArrays(
-            torch.where(r1, lad_r1.ranks, lad_normal.ranks)[None],
-            torch.where(r1, lad_r1.fracs, lad_normal.fracs)[None])
+    """Stage 3 (:func:`_refine_best`) through the shared codebook, then
+    the rescale (ref: inferLowRankV4_multi.m:79-107).  ``x`` (R, B, n),
+    ``q`` and ``rank_one`` (R, B)."""
     a_full = Pair(fp.a_n.re[None], fp.a_n.im[None])             # (1, m, n)
-    x_max = Pair(x.re[j, ar][None, :, None],
-                 x.im[j, ar][None, :, None])                    # (1, B, 1, n)
-    x_ref, _, _, it_ref = infer_admm_pair(
-        a_full, fp.b_n[None], x_max, scale_by_row=True, nt=nt, nr=nr,
-        ladder=lad, u_mat=precompute_u_pair(a_full), prox_kind=prox_kind,
-        mu0=cfg.mu0, rho=cfg.rho, tol_rel=cfg.tol_rel, tol_abs=cfg.tol_abs,
-        maxiter=cfg.maxiter, fused_loop=False)
-    xo = _rollback(x_max, x_ref, q_max[None], cfg)
-    s = (fp.b_norm / fp.a_norm)[:, None]
+    xo, q_max, it_ref = _refine_best(
+        a_full, fp.b_n[None], Pair(x.re.transpose(0, 1), x.im.transpose(0, 1)),
+        q.transpose(0, 1), rank_one.transpose(0, 1), lad_normal, lad_r1, nt,
+        nr, cfg, prox_kind, shared=True)
     return PairAdmmResult(
-        x=scale(Pair(xo.re[0, :, 0], xo.im[0, :, 0]), s), quality=q_max,
-        converged=torch.ones(batch, dtype=torch.bool, device=q.device),
-        iters=it_sum + it_ref[0])
+        x=scale(xo, (fp.b_norm / fp.a_norm)[:, None]), quality=q_max,
+        converged=torch.ones(q.shape[1], dtype=torch.bool, device=q.device),
+        iters=it_sum + it_ref)
 
 
 def _random_splits(m: int, frac: float, n_restarts: int,
