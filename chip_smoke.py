@@ -1293,7 +1293,6 @@ def phase3_slice():
     stop.record()
     torch.cuda.synchronize()
     launches = launch_counts()
-    routes = dict(pair_matmul.routes)
     secs = start.elapsed_time(stop) / 1e3
 
     if res.x.re.device.type != "cuda":
@@ -1313,7 +1312,7 @@ def phase3_slice():
           f"| {SOLVE_BATCH / secs:.2f} rec/s | {iters} iters, "
           f"{iters / secs:.1f} iter/s | median NMSE {med:.2f} dB | worst "
           f"{float(nmse_db.max()):.2f} dB | min quality {qmin:.6f} | "
-          f"launches {launches} | K4 by route {routes}", flush=True)
+          f"launches {launches}", flush=True)
     if med > -60.0:
         raise RuntimeError(f"median NMSE {med:.2f} dB above -60 dB")
     if qmin < 0.98:
@@ -1454,12 +1453,11 @@ def phase4_single():
     torch.cuda.synchronize()
     ref_ms = (time.perf_counter() - t0) * 1e3
     counts = launch_counts()
-    routes = dict(pair_matmul.routes)
     ref_db = nmse_db(ref.x, two["x_true"])
     print(f"[4 refine] refine_lowrank_pair anchor_weight 0.5 from the "
           f"two-path result: {ref_ms:.2f} ms | iters {int(ref.iters)} | "
           f"NMSE {ref_db:.2f} dB | quality {float(ref.quality):.6f} | "
-          f"launches {counts} | K4 by route {routes}", flush=True)
+          f"launches {counts}", flush=True)
     require_launched(counts, ("fused_prox_dual_t", "fused_zprox_t",
                               "pair_matmul"), "the anchored refine")
     if ref_db > -60.0 or float(ref.quality) < 0.98:
@@ -1589,7 +1587,6 @@ def run_tracker(name, solver, rows, amps, vhs, p, mob):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    routes = dict(pair_matmul.routes)
 
     if not np.isfinite(trace.estimates).all():
         raise RuntimeError(f"{name}: non-finite estimate")
@@ -1607,7 +1604,7 @@ def run_tracker(name, solver, rows, amps, vhs, p, mob):
           f"{warm_s:.2f} s) | tracked NMSE median first quarter "
           f"{out['first']:.2f} dB, last quarter {out['last']:.2f} dB | "
           f"reset branch {out['reset']}, growth branch {out['growth']} | "
-          f"launches {counts} | K4 by route {routes}", flush=True)
+          f"launches {counts}", flush=True)
     profile_call(f"[5 profile] {name}, last window", timed.replay)
     return out
 

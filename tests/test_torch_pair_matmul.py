@@ -147,15 +147,19 @@ def test_route_is_a_function_of_the_shape(shape, want):
 
 def test_route_grids_and_counts():
     """The split-K grid's z axis is G times the row blocks: the wrapper
-    raises above 65535; resetting the launch counts resets each route's."""
+    raises above 65535; the route follows M alone; resetting the launch
+    counts resets K4's."""
     big = Pair(torch.zeros(65536, 1, 1), torch.zeros(65536, 1, 1))
     with pytest.raises(ValueError, match="rows route"):
         k4._check(big, big)
     assert [k4.ksplit(k) for k in (1, 80, 256, 1024, 10 ** 6)] == [
         1, 2, 4, 8, 8]
-    kernels.pair_matmul.routes["rows"] = 5
+    assert [k4.route(3, m, 972, 256) for m in (1, k4.ROWS_MAX_M,
+                                                k4.ROWS_MAX_M + 1, 1280)] == [
+        "rows", "rows", "tc", "tc"]
+    kernels.pair_matmul.launches = 5
     kernels.reset_launch_counts()
-    assert kernels.pair_matmul.routes == {"tc": 0, "rows": 0}
+    assert kernels.pair_matmul.launches == 0
 
 
 @pytest.mark.gpu
@@ -177,11 +181,10 @@ def test_pair_matmul_kernel_matches_plain_on_card(shape):
     which = k4.route(*shape)
     with no_tf32():
         before = kernels.pair_matmul.launches
-        routed = kernels.pair_matmul.routes[which]
         got = kernels.pair_matmul(a, b)
         torch.cuda.synchronize()
         assert kernels.pair_matmul.launches == before + 1
-        assert kernels.pair_matmul.routes[which] == routed + 1
+        assert which == ("rows" if shape[1] <= k4.ROWS_MAX_M else "tc")
         want = kernels.pair_matmul_plain(a, b)
     for g, w in zip(got, want):
         assert float((g - w).abs().max() / w.abs().max()) <= 1e-5

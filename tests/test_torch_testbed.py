@@ -11,7 +11,6 @@ whole 64-row budget: JAX compiles its solver once per shape, about 12 s
 with one restart) and are held within 1 dB NMSE.
 """
 
-import json
 import os
 
 import jax
@@ -28,7 +27,6 @@ from twoace_tpu.pipeline import testbed as jtb
 from twoace_tpu.sensing import codebooks as jcb
 from twoace_tpu.sensing import provider as jprov
 from twoace_tpu.utils import checkpoint as jck
-from twoace_tpu.utils import profiling as jprof
 from twoace_tpu.utils import spectral_analysis as jspec
 from twoace_tpu_torch import config as tcfg
 from twoace_tpu_torch.ops import pair_solver as tps
@@ -243,10 +241,12 @@ def test_thermal_guard_and_device():
 SPECTRA = ("singular_profile", "captured_energy", "eig_decay", "nuclear_norm")
 
 
-def test_spectral_analysis_and_profiling_match_jax(tmp_path):
+def test_spectral_analysis_and_profiling_match_jax():
     """The spectral-profile analysis of a batch of 4x4 channels (complex128:
-    within 1e-10), and the timers: the same report layout as JAX's, a
-    section that syncs a tensor tree, a trace written when asked."""
+    within 1e-10), and the recorder: nothing kept and one shared no-op
+    span without a profiler; under one, nested spans with their parent
+    and call ids on the host clock, a loop's lane trips read from its
+    tensor at the snapshot, and a barrier on a tensor tree."""
     rng = np.random.default_rng(4)
     h = rng.normal(size=(3, NT, NR)) + 1j * rng.normal(size=(3, NT, NR))
     h[0] = np.outer(steer(NT, 0.2), steer(NR, -0.4))       # rank one
@@ -269,21 +269,34 @@ def test_spectral_analysis_and_profiling_match_jax(tmp_path):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    atol=1e-10)
 
-    timers = []
-    for prof, tree in ((tprof, {"x": [ht, (ht,)]}), (jprof, [hj])):
-        timer = prof.Timer()
-        for _ in range(2):
-            with timer.section("solve", sync_tree=tree):
+    tprof.reset()
+    assert tprof.span("a") is tprof.span("b")
+    with tprof.span("pair.single"):
+        tprof.record_trips("per-op", 2, 8, N, "k2", 3, 5, torch.ones(3))
+    assert tprof.snapshot() == ([], [])
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert tprof.span("a") is not tprof.span("b")
+        with tprof.span("pair.single"):
+            with tprof.span("setup.splits"):
                 pass
-        timers.append(json.loads(timer.report()))
-        assert timer.rate("solve", 10.0) > 0
-    assert [sorted(r) for r in timers[0]] == [sorted(r) for r in timers[1]]
-    assert timers[0][0]["calls"] == 2
-    with tprof.device_trace(str(tmp_path)):
-        torch.ones(3).sum()
-    assert os.listdir(str(tmp_path))
-    with tprof.device_trace(None):
-        pass
+            with tprof.span("stage.refine"):
+                it = torch.tensor([[4, 7]], dtype=torch.int32)
+                tprof.record_trips("per-op", 1, 8, N, "k2", 2, 7, it)
+        with tprof.span("pair.single"):
+            pass
+    it += 100                          # read at the snapshot, not before
+    spans, trips = tprof.snapshot()
+    assert [(sp.name, sp.parent, sp.call) for sp in spans] == [
+        ("pair.single", -1, 0), ("setup.splits", 0, 0),
+        ("stage.refine", 0, 0), ("pair.single", -1, 3)]
+    assert all(sp.start_ns <= sp.end_ns for sp in spans)
+    assert (spans[0].start_ns <= spans[1].start_ns <= spans[2].end_ns
+            <= spans[0].end_ns <= spans[3].start_ns)
+    assert trips == [tprof.Trips("per-op", 1, 8, N, "k2", 2, 7, 211, 2, 0)]
+    tprof.sync({"x": [ht, (ht,)]})
+    tprof.reset()
+    assert tprof.snapshot() == ([], [])
 
 
 # ------------------------------------------------------ the Z-free branch

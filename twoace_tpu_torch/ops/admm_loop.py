@@ -38,6 +38,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..utils import profiling
 from .cplx import Pair, add, conj, matmul, sub, transpose
 
 #: trips between host reads of the lanes' converged masks
@@ -145,7 +146,8 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
               prox_dual: ProxDual, z_prox: ZProx, rho: float, tol_rel: float,
               tol_abs: float, maxiter: int, warm_iters: int = 0,
               anchor: Optional[Pair] = None, reduce: RowHook = None,
-              m_eff: Optional[int] = None):
+              m_eff: Optional[int] = None, path: str = "per-op",
+              zprox: str = "k2"):
     """The loop of every lane from its prepared state.
 
     ``a``: (G, m, n); ``b``: (G, P, m); ``u_mat``: (G, n, n), the inverse
@@ -172,6 +174,10 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
     and the tail continues from the carried state (ref :571-578); every
     trip runs in float32 (JAX's single-pass "default" for the warm trips
     has no counterpart yet).
+
+    ``path`` and ``zprox`` name the loop and its Z-prox in the loop's
+    lane-trip record (:func:`..utils.profiling.record_trips`: both phases
+    of a warm loop in one record; ``zprox`` reads "none" without one).
 
     Returns ``(opt_x, opt_y, converged, it)``: opt_x (G, P, r, n) with
     ``scale_by_row``, else the best column (G, P, 1, n); ``it`` (G, P).
@@ -321,15 +327,22 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
                       opt_obj=opt_obj, opt_x=opt_x, opt_y=opt_y,
                       it=c.it + 1, converged=converged)
 
+    trips = 0
+
     def run(c: _State, bound: int) -> _State:
+        nonlocal trips
         for trip in range(bound):
             active = (c.it < bound) & ~c.converged
-            if trip % CHECK_EVERY == 0 and not any_active(active, reduce):
-                break
+            if trip % CHECK_EVERY == 0:
+                with profiling.span("inner.check"):
+                    go = any_active(active, reduce)
+                if not go:
+                    break
             if reduce is not None:
                 reduce.trips += 1
             new = body(c)
             c = _State(*(where(active, nv, ov) for nv, ov in zip(new, c)))
+            trips += 1
         return c
 
     if warm_iters > 0:
@@ -342,4 +355,6 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
                                opt_obj=torch.full_like(state.opt_obj,
                                                        math.inf))
     state = run(state, maxiter)
+    profiling.record_trips(path, r, m, n, zprox if has_z else "none",
+                           n_lanes, trips, state.it)
     return state.opt_x, state.opt_y, state.converged, state.it

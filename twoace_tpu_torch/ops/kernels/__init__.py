@@ -18,8 +18,7 @@ PyTorch version.  Port of ``twoace_tpu.ops.pallas.kernels``:
   ``scripts/torch_bench_pallas_mm.py``).
 
 Each wrapper counts its launches in a plain integer attribute
-``.launches`` (K4 also those of each route, in ``pair_matmul.routes``); a
-CPU tensor takes the plain version and counts nothing.
+``.launches``; a CPU tensor takes the plain version and counts nothing.
 """
 
 from .prox_dual import fused_prox_dual_t, prox_dual_t_plain  # noqa: F401
@@ -36,7 +35,6 @@ KERNELS = (fused_prox_dual_t, fused_zprox_t, fused_infer_admm, pair_matmul,
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
-    pair_matmul.routes = dict.fromkeys(pair_matmul.routes, 0)
 
 
 def launch_counts() -> dict:

@@ -6,7 +6,9 @@ lane axis: ``a`` (G, m, n) and ``u`` (G, n, n) per group, ``b`` and the
 state (G, P, ...) per lane, and the ladder as per-lane runtime tensors.
 A CPU tensor takes the plain version :func:`infer_admm_plain`, which runs
 the shared loop body (:func:`..admm_loop.admm_loop`) with K4's, K1's and
-K2's plain versions; a CUDA tensor launches the kernel or raises.
+K2's plain versions; a CUDA tensor launches the kernel or raises.  Each
+launch leaves one lane-trip record (path "k3"), the plain version one of
+path "k3-plain" (:mod:`...utils.profiling`), while a profiler is open.
 
 On CUDA the kernel computes its four complex products in 3xTF32 on the
 tensor cores against constants split once per launch (the counterpart
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils import profiling
 from ..admm_loop import admm_loop
 from ..cplx import LadderArrays, Pair
 from . import _build
@@ -92,7 +95,8 @@ def infer_admm_plain(a: Pair, b, u: Pair, y0: Pair, z0: Pair, v0: Pair, mu0,
     return admm_loop(a, b, u, y0, z0, v0, mu0, scale_by_row=scale_by_row,
                      pair_gemm=pair_matmul_plain,
                      prox_dual=prox_dual_t_plain, z_prox=z_prox, rho=rho,
-                     tol_rel=tol_rel, tol_abs=tol_abs, maxiter=maxiter)
+                     tol_rel=tol_rel, tol_abs=tol_abs, maxiter=maxiter,
+                     path="k3-plain")
 
 
 def _check(a: Pair, b, u: Pair, y0: Pair, z0: Pair, v0: Pair, mu0,
@@ -188,6 +192,7 @@ def fused_infer_admm(a: Pair, b, u: Pair, y0: Pair, z0: Pair, v0: Pair, mu0,
                            f"cannot be placed on {dev}")
     _build.check(rc, "fused_infer_admm")
     fused_infer_admm.launches += 1
+    profiling.record_trips("k3", r, m, n, "k2", lanes, None, it)
     return Pair(*ox), Pair(*oy), conv.bool(), it
 
 

@@ -12,8 +12,7 @@ raises:
 - ``"rows"``: split-K over a thread-block cluster on the CUDA cores, for
   the one-row products of the anchored refine and the warm trackers.
 
-``pair_matmul.launches`` counts every launch and ``pair_matmul.routes``
-the launches of each route.  :func:`round_tf32` and
+``pair_matmul.launches`` counts every launch.  :func:`round_tf32` and
 :func:`pair_matmul_tf32_emulated` repeat the tensor-core route's
 arithmetic in plain torch for the CPU tests; nothing else calls them.
 """
@@ -123,7 +122,6 @@ def launch(a: Pair, b: Pair, which: str) -> Pair:
         raise ValueError(f"unknown route {which!r}")
     _build.check(rc, f"pair_matmul ({which})")
     pair_matmul.launches += 1
-    pair_matmul.routes[which] += 1
     return Pair(c_re, c_im)
 
 
@@ -139,7 +137,6 @@ def pair_matmul(a: Pair, b: Pair) -> Pair:
 
 
 pair_matmul.launches = 0
-pair_matmul.routes = {"tc": 0, "rows": 0}
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,15 @@ No solve on a CUDA tensor falls back to a plain version.  The setup around
 the loop (Cholesky, eigh, QR, the quality gate, the retry gather and
 scatter) is plain torch.  Only ``eig_mode="perturb"`` is ported: the Jacobi
 eigensolver existed because the TPU lacked ``eigh``.
+
+While a ``torch.profiler`` session is open, the two entries record their
+spans (:mod:`..utils.profiling`): the roots ``pair.batch`` and
+``pair.single``; ``setup.*`` (the active-row read, the splits,
+normalisation, U, the spectral init and its CPU draw, the column
+orthonormalisation, each loop's initialisation); ``stage.*`` (first pass,
+retry, refine); ``inner.solve`` (one a loop: the per-op loop or one K3
+launch) with the loop's ``inner.check`` reads; and ``scaffold.*``
+(quality, the host gate, the selection, the rollback).
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import numpy as np
 import torch
 
 from ..config import AdmmConfig
+from ..utils.profiling import span
 from .admm_loop import RowHook, admm_loop, gemm, groups, lanes, norm, where
 from .cplx import (LadderArrays, Pair, from_complex, magnitude_prox_cols_elem,
                    scale, to_complex, transpose)
@@ -99,16 +109,17 @@ def precompute_u_pair(a: Pair, reg: float = 1.0,
     complex Cholesky and a triangular solve.  ref: inferLowRankV4_multi.m:241-247.
     With ``reduce`` (a row-sharded block) the Gram is all-reduced first.
     """
-    ac = to_complex(a)
-    n = ac.shape[-1]
-    g = ac.mH @ ac
-    if reduce is not None:
-        g = reduce.sum_(g)
-    eye = torch.eye(n, dtype=ac.dtype, device=ac.device)
-    g = 0.5 * (g + g.mH) + reg * eye
-    c = torch.linalg.cholesky(g)
-    w = torch.linalg.solve_triangular(c, eye.expand_as(c), upper=False)
-    return from_complex(w.mH @ w)
+    with span("setup.precompute_u"):
+        ac = to_complex(a)
+        n = ac.shape[-1]
+        g = ac.mH @ ac
+        if reduce is not None:
+            g = reduce.sum_(g)
+        eye = torch.eye(n, dtype=ac.dtype, device=ac.device)
+        g = 0.5 * (g + g.mH) + reg * eye
+        c = torch.linalg.cholesky(g)
+        w = torch.linalg.solve_triangular(c, eye.expand_as(c), upper=False)
+        return from_complex(w.mH @ w)
 
 
 def pinv_u_pair(a: Pair) -> Pair:
@@ -131,12 +142,14 @@ def spectral_initialize_pair(a: Pair, b, r: int,
     ref: inferLowRankV4_multi.m:561-574.  The start block is drawn from
     ``generator`` on the CPU, so a seed gives the same init on any device.
     """
-    gram = scaled_gram_pair(a, b)
-    g_, p_, n, _ = gram.shape
-    r = min(r, a.re.shape[-2], n)
-    q = torch.randn((g_, p_, n, r), dtype=torch.complex64,
-                    generator=generator)
-    return top_r_init(gram, q, iters)
+    with span("setup.spectral_init"):
+        gram = scaled_gram_pair(a, b)
+        g_, p_, n, _ = gram.shape
+        r = min(r, a.re.shape[-2], n)
+        with span("setup.spectral_init.draw"):
+            q = torch.randn((g_, p_, n, r), dtype=torch.complex64,
+                            generator=generator).to(gram.device)
+        return top_r_init(gram, q, iters)
 
 
 def scaled_gram_pair(a: Pair, b) -> torch.Tensor:
@@ -153,7 +166,7 @@ def scaled_gram_pair(a: Pair, b) -> torch.Tensor:
 
 def top_r_init(gram: torch.Tensor, q: torch.Tensor, iters: int = 12) -> Pair:
     """X0^T (G, P, r, n) from the scaled Gram (G, P, n, n) and the start
-    block ``q`` (G, P, n, r), complex64 on the CPU: orthogonal iteration,
+    block ``q`` (G, P, n, r), complex64 on any device: orthogonal iteration,
     Rayleigh-Ritz ``eigh``, eigenvectors scaled by sqrt(eigenvalue)."""
     gram = 0.5 * (gram + gram.mH)
     q = torch.linalg.qr(q.to(gram.device)).Q
@@ -185,10 +198,11 @@ def project_cols_to_magnitude(y: Pair, b, scale_by_row: bool) -> Pair:
 def _orthonormalize_cols_t(x: Pair) -> Pair:
     """X <- X * eigvec(X^H X), eigenvectors in descending order, on
     transposed x (..., r, n).  ref :263-264."""
-    xc = to_complex(x)
-    g = xc.conj() @ xc.transpose(-1, -2)                       # X^H X
-    _, v = torch.linalg.eigh(0.5 * (g + g.mH))
-    return from_complex(v.flip(-1).transpose(-1, -2) @ xc)
+    with span("setup.orthonormalize"):
+        xc = to_complex(x)
+        g = xc.conj() @ xc.transpose(-1, -2)                   # X^H X
+        _, v = torch.linalg.eigh(0.5 * (g + g.mH))
+        return from_complex(v.flip(-1).transpose(-1, -2) @ xc)
 
 
 def _nuclear_prox_t(z: Pair, thresh) -> Pair:
@@ -210,11 +224,13 @@ def _nuclear_prox_t(z: Pair, thresh) -> Pair:
 def _quality_pair(a_te: Pair, b_te, x: Pair):
     """1 - ||(|A_te x|) - b_te|| / ||b_te|| of single-column x (G, P, 1, n)
     against (G, m_te, n) blocks and b_te (G, P, m_te).  ref :68."""
-    ax = gemm(x, transpose(a_te))
-    amp = torch.sqrt(torch.clamp(ax.re ** 2 + ax.im ** 2, min=0.0))[..., 0, :]
-    return 1.0 - (torch.linalg.vector_norm(amp - b_te, dim=-1)
-                  / torch.clamp(torch.linalg.vector_norm(b_te, dim=-1),
-                                min=1e-30))
+    with span("scaffold.quality"):
+        ax = gemm(x, transpose(a_te))
+        amp = torch.sqrt(torch.clamp(ax.re ** 2 + ax.im ** 2,
+                                     min=0.0))[..., 0, :]
+        return 1.0 - (torch.linalg.vector_norm(amp - b_te, dim=-1)
+                      / torch.clamp(torch.linalg.vector_norm(b_te, dim=-1),
+                                    min=1e-30))
 
 
 # ---------------------------------------------------------------------------
@@ -250,35 +266,38 @@ def admm_init_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool, nt: int,
     Z-free branch).  With ``reduce`` (row-sharded blocks) the norms of b
     and A x0 are summed over the shards in one all-reduce.
     """
-    g_, p_ = x0.re.shape[:2]
-    a_t = transpose(a)
-    ax = gemm(x0, a_t)
-    if reduce is None:
-        bn = torch.linalg.vector_norm(b, dim=-1)                # (G, P)
-        if scale_by_row:
-            nax = norm(ax)
+    with span("setup.admm_init"):
+        g_, p_ = x0.re.shape[:2]
+        a_t = transpose(a)
+        ax = gemm(x0, a_t)
+        if reduce is None:
+            bn = torch.linalg.vector_norm(b, dim=-1)            # (G, P)
+            if scale_by_row:
+                nax = norm(ax)
+            else:
+                col2 = torch.sum(ax.re ** 2 + ax.im ** 2,
+                                 dim=-1)                        # (G, P, r)
         else:
-            col2 = torch.sum(ax.re ** 2 + ax.im ** 2, dim=-1)   # (G, P, r)
-    else:
-        s2 = reduce.sum_(torch.cat([
-            torch.sum(b * b, dim=-1)[..., None],
-            torch.sum(ax.re ** 2 + ax.im ** 2, dim=-1)], dim=-1))
-        bn, col2 = torch.sqrt(s2[..., 0]), s2[..., 1:]
-        nax = torch.sqrt(torch.sum(col2, dim=-1))
-    if scale_by_row:
-        x = scale(x0, (bn / torch.clamp(nax, min=1e-30))[..., None, None])
-    else:
-        col = torch.sqrt(torch.clamp(col2, min=1e-30))
-        x = scale(x0, (bn[..., None] / col)[..., None])
-    y = project_cols_to_magnitude(gemm(x, a_t), b, scale_by_row)
-    zero = torch.zeros(g_, p_, 1, 1, dtype=torch.float32, device=x.re.device)
-    if prox_kind == "nuclear":
-        return y, _nuclear_prox_t(x, 1.0), Pair(zero, zero)
-    if ladder is None:                                   # the Z-free branch
-        return y, Pair(zero, zero), Pair(zero, zero)
-    z, v_basis = (groups(p, g_) for p in zprox_t_plain(
-        lanes(x), None, nt, nr, _lane_ladder(ladder, g_, p_)))
-    return y, z, v_basis
+            s2 = reduce.sum_(torch.cat([
+                torch.sum(b * b, dim=-1)[..., None],
+                torch.sum(ax.re ** 2 + ax.im ** 2, dim=-1)], dim=-1))
+            bn, col2 = torch.sqrt(s2[..., 0]), s2[..., 1:]
+            nax = torch.sqrt(torch.sum(col2, dim=-1))
+        if scale_by_row:
+            x = scale(x0, (bn / torch.clamp(nax, min=1e-30))[..., None, None])
+        else:
+            col = torch.sqrt(torch.clamp(col2, min=1e-30))
+            x = scale(x0, (bn[..., None] / col)[..., None])
+        y = project_cols_to_magnitude(gemm(x, a_t), b, scale_by_row)
+        zero = torch.zeros(g_, p_, 1, 1, dtype=torch.float32,
+                           device=x.re.device)
+        if prox_kind == "nuclear":
+            return y, _nuclear_prox_t(x, 1.0), Pair(zero, zero)
+        if ladder is None:                               # the Z-free branch
+            return y, Pair(zero, zero), Pair(zero, zero)
+        z, v_basis = (groups(p, g_) for p in zprox_t_plain(
+            lanes(x), None, nt, nr, _lane_ladder(ladder, g_, p_)))
+        return y, z, v_basis
 
 
 def infer_admm_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool,
@@ -357,10 +376,11 @@ def infer_admm_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool,
         lad = _lane_ladder(ladder, g_, p_)
         if fused_loop and not anchored and warm_iters == 0 \
                 and reduce is None:
-            return fused_infer_admm(
-                _contiguous(a), b.contiguous(), _contiguous(u_mat),
-                _contiguous(y), _contiguous(z), _contiguous(v_basis), mu, lad,
-                nt=nt, nr=nr, **kw)
+            with span("inner.solve"):
+                return fused_infer_admm(
+                    _contiguous(a), b.contiguous(), _contiguous(u_mat),
+                    _contiguous(y), _contiguous(z), _contiguous(v_basis), mu,
+                    lad, nt=nt, nr=nr, **kw)
 
         def z_prox(zz, vv, mu_l):
             return fused_zprox_t(zz, vv, nt, nr, lad)
@@ -368,11 +388,12 @@ def infer_admm_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool,
         def z_prox(zz, vv, mu_l):
             return _nuclear_prox_t(zz, 1.0 / mu_l), vv
 
-    return admm_loop(a, b, u_mat, y, z, v_basis, mu, pair_gemm=pair_matmul,
-                     prox_dual=fused_prox_dual_t, z_prox=z_prox,
-                     warm_iters=warm_iters,
-                     anchor=scale(anchor, anchor_weight) if anchored else None,
-                     **kw)
+    with span("inner.solve"):
+        return admm_loop(
+            a, b, u_mat, y, z, v_basis, mu, pair_gemm=pair_matmul,
+            prox_dual=fused_prox_dual_t, z_prox=z_prox, warm_iters=warm_iters,
+            anchor=scale(anchor, anchor_weight) if anchored else None,
+            zprox="nuclear" if prox_kind == "nuclear" else "k2", **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -431,13 +452,14 @@ def _normalize_problem_pair(a: Pair, b, tol_abs: float, m_eff=None):
     a single b: padding rows (A_i = 0, b_i = 0) then leave the
     normalization, and so the ridge in U = inv(A^H A + I), as for the
     unpadded problem.  Returns ``(a_n, b_n, a_norm, b_norm)``."""
-    if m_eff is None:
-        m_eff = torch.clamp(torch.sum(b > 0), min=1).to(torch.float32)
-    a_norm = norm(a) / m_eff ** 0.5
-    a_norm = torch.where(a_norm < tol_abs, 1.0, a_norm)
-    b_norm = torch.linalg.vector_norm(b, dim=-1)
-    b_norm = torch.where(b_norm < tol_abs, 1.0, b_norm)
-    return scale(a, 1.0 / a_norm), b / b_norm[..., None], a_norm, b_norm
+    with span("setup.normalize"):
+        if m_eff is None:
+            m_eff = torch.clamp(torch.sum(b > 0), min=1).to(torch.float32)
+        a_norm = norm(a) / m_eff ** 0.5
+        a_norm = torch.where(a_norm < tol_abs, 1.0, a_norm)
+        b_norm = torch.linalg.vector_norm(b, dim=-1)
+        b_norm = torch.where(b_norm < tol_abs, 1.0, b_norm)
+        return scale(a, 1.0 / a_norm), b / b_norm[..., None], a_norm, b_norm
 
 
 def _rows(a: Pair, idx) -> Pair:
@@ -448,14 +470,15 @@ def _rollback(x_max: Pair, x_ref: Pair, q_max, cfg: AdmmConfig) -> Pair:
     """Keep the refine's result unless the selected restart was good and
     the refine wandered off it: similarity |<x_max, x_ref>| /
     (||x_max|| ||x_ref||) below the threshold (ref :93-98)."""
-    dims = (-2, -1)
-    dot_re = torch.sum(x_max.re * x_ref.re + x_max.im * x_ref.im, dim=dims)
-    dot_im = torch.sum(x_max.re * x_ref.im - x_max.im * x_ref.re, dim=dims)
-    similarity = (torch.sqrt(dot_re ** 2 + dot_im ** 2)
-                  / torch.clamp(norm(x_max) * norm(x_ref), min=1e-30))
-    rollback = ((q_max > cfg.quality_threshold)
-                & (similarity < cfg.similarity_threshold))
-    return where(rollback, x_max, x_ref)
+    with span("scaffold.rollback"):
+        dims = (-2, -1)
+        dot_re = torch.sum(x_max.re * x_ref.re + x_max.im * x_ref.im, dim=dims)
+        dot_im = torch.sum(x_max.re * x_ref.im - x_max.im * x_ref.re, dim=dims)
+        similarity = (torch.sqrt(dot_re ** 2 + dot_im ** 2)
+                      / torch.clamp(norm(x_max) * norm(x_ref), min=1e-30))
+        rollback = ((q_max > cfg.quality_threshold)
+                    & (similarity < cfg.similarity_threshold))
+        return where(rollback, x_max, x_ref)
 
 
 class _FirstPass(NamedTuple):
@@ -483,20 +506,21 @@ def _batch_first_pass(a: Pair, b_batch, trains, tests,
     ``xs``: optional spectral init (R, B, r, n), which lets a test run the
     port on exactly the JAX package's inputs.
     """
-    n = a.re.shape[-1]
-    r = min(cfg.rank, trains.shape[1], n)
-    a_n, b_n, a_norm, b_norm = _normalize_problem_pair(a, b_batch,
-                                                       cfg.tol_abs, m_eff)
-    a_tr, a_te = _rows(a_n, trains), _rows(a_n, tests)          # (R, k, n)
-    b_tr = b_n[:, trains].transpose(0, 1)                       # (R, B, k)
-    b_te = b_n[:, tests].transpose(0, 1)
-    u_tr = precompute_u_pair(a_tr)
-    if xs is None:
-        xs = spectral_initialize_pair(a_tr, b_tr, r, generator)
-    x, _, it = _impl_pair(a_tr, b_tr, xs, nt, nr, cfg, ladder, u_tr,
-                          prox_kind, fused_loop=False)
-    q = _quality_pair(a_te, b_te, x)
-    return _FirstPass(x, q, it, xs, u_tr, a_n, b_n, a_norm, b_norm)
+    with span("stage.first_pass"):
+        n = a.re.shape[-1]
+        r = min(cfg.rank, trains.shape[1], n)
+        a_n, b_n, a_norm, b_norm = _normalize_problem_pair(a, b_batch,
+                                                           cfg.tol_abs, m_eff)
+        a_tr, a_te = _rows(a_n, trains), _rows(a_n, tests)          # (R, k, n)
+        b_tr = b_n[:, trains].transpose(0, 1)                       # (R, B, k)
+        b_te = b_n[:, tests].transpose(0, 1)
+        u_tr = precompute_u_pair(a_tr)
+        if xs is None:
+            xs = spectral_initialize_pair(a_tr, b_tr, r, generator)
+        x, _, it = _impl_pair(a_tr, b_tr, xs, nt, nr, cfg, ladder, u_tr,
+                              prox_kind, fused_loop=False)
+        q = _quality_pair(a_te, b_te, x)
+        return _FirstPass(x, q, it, xs, u_tr, a_n, b_n, a_norm, b_norm)
 
 
 def _batch_retry(fp: _FirstPass, rest_idx, inst_idx, trains, tests,
@@ -505,18 +529,19 @@ def _batch_retry(fp: _FirstPass, rest_idx, inst_idx, trains, tests,
     (restart, instance) pairs (ref: inferLowRankV4_multi.m:73-77).  Each
     pair is its own group (its restart's train rows and U).
     Returns ``(x (K, n), q (K,), it (K,))``."""
-    tr, te = trains[rest_idx], tests[rest_idx]                  # (K, k)
-    a_tr, a_te = _rows(fp.a_n, tr), _rows(fp.a_n, te)
-    b_sel = fp.b_n[inst_idx]
-    b_tr = torch.gather(b_sel, 1, tr)[:, None]                  # (K, 1, k)
-    b_te = torch.gather(b_sel, 1, te)[:, None]
-    xs = Pair(fp.xs.re[rest_idx, inst_idx][:, None],
-              fp.xs.im[rest_idx, inst_idx][:, None])
-    u = _rows(fp.u_tr, rest_idx)
-    x, _, it = _impl_pair(a_tr, b_tr, xs, nt, nr, cfg, ladder_r1, u,
-                          fused_loop=False)
-    q = _quality_pair(a_te, b_te, x)
-    return Pair(x.re[:, 0, 0], x.im[:, 0, 0]), q[:, 0], it.sum(-1)[:, 0]
+    with span("stage.retry"):
+        tr, te = trains[rest_idx], tests[rest_idx]                  # (K, k)
+        a_tr, a_te = _rows(fp.a_n, tr), _rows(fp.a_n, te)
+        b_sel = fp.b_n[inst_idx]
+        b_tr = torch.gather(b_sel, 1, tr)[:, None]                  # (K, 1, k)
+        b_te = torch.gather(b_sel, 1, te)[:, None]
+        xs = Pair(fp.xs.re[rest_idx, inst_idx][:, None],
+                  fp.xs.im[rest_idx, inst_idx][:, None])
+        u = _rows(fp.u_tr, rest_idx)
+        x, _, it = _impl_pair(a_tr, b_tr, xs, nt, nr, cfg, ladder_r1, u,
+                              fused_loop=False)
+        q = _quality_pair(a_te, b_te, x)
+        return Pair(x.re[:, 0, 0], x.im[:, 0, 0]), q[:, 0], it.sum(-1)[:, 0]
 
 
 def _refine_best(a_n: Pair, b_n, x: Pair, q, rank_one,
@@ -537,11 +562,13 @@ def _refine_best(a_n: Pair, b_n, x: Pair, q, rank_one,
     Returns ``(x (B, n) before the rescale, q_max (B,), the refine's
     trips (B,))``."""
     batch, _, n = x.re.shape
-    ar = torch.arange(batch, device=q.device)
-    j = torch.argmax(q, dim=1)                                  # (B,)
-    q_max = q[ar, j]
-    lead = (1, batch) if shared else (batch, 1)
-    x_max = Pair(x.re[ar, j].view(*lead, 1, n), x.im[ar, j].view(*lead, 1, n))
+    with span("scaffold.select"):
+        ar = torch.arange(batch, device=q.device)
+        j = torch.argmax(q, dim=1)                                  # (B,)
+        q_max = q[ar, j]
+        lead = (1, batch) if shared else (batch, 1)
+        x_max = Pair(x.re[ar, j].view(*lead, 1, n),
+                     x.im[ar, j].view(*lead, 1, n))
     lad = None
     if prox_kind != "nuclear":
         r1 = rank_one[ar, j].view(*lead, 1)
@@ -565,15 +592,18 @@ def _batch_refine(fp: _FirstPass, x: Pair, q, it_sum, rank_one,
     """Stage 3 (:func:`_refine_best`) through the shared codebook, then
     the rescale (ref: inferLowRankV4_multi.m:79-107).  ``x`` (R, B, n),
     ``q`` and ``rank_one`` (R, B)."""
-    a_full = Pair(fp.a_n.re[None], fp.a_n.im[None])             # (1, m, n)
-    xo, q_max, it_ref = _refine_best(
-        a_full, fp.b_n[None], Pair(x.re.transpose(0, 1), x.im.transpose(0, 1)),
-        q.transpose(0, 1), rank_one.transpose(0, 1), lad_normal, lad_r1, nt,
-        nr, cfg, prox_kind, shared=True)
-    return PairAdmmResult(
-        x=scale(xo, (fp.b_norm / fp.a_norm)[:, None]), quality=q_max,
-        converged=torch.ones(q.shape[1], dtype=torch.bool, device=q.device),
-        iters=it_sum + it_ref)
+    with span("stage.refine"):
+        a_full = Pair(fp.a_n.re[None], fp.a_n.im[None])             # (1, m, n)
+        xo, q_max, it_ref = _refine_best(
+            a_full, fp.b_n[None],
+            Pair(x.re.transpose(0, 1), x.im.transpose(0, 1)),
+            q.transpose(0, 1), rank_one.transpose(0, 1), lad_normal, lad_r1,
+            nt, nr, cfg, prox_kind, shared=True)
+        return PairAdmmResult(
+            x=scale(xo, (fp.b_norm / fp.a_norm)[:, None]), quality=q_max,
+            converged=torch.ones(q.shape[1], dtype=torch.bool,
+                                 device=q.device),
+            iters=it_sum + it_ref)
 
 
 def _random_splits(m: int, frac: float, n_restarts: int,
@@ -591,12 +621,14 @@ def _splits(splits, m: int, cfg: AdmmConfig, n_restarts: int, generator,
             dev):
     """(trains (R, k), tests (R, m - k)) on ``dev``: drawn, or the
     test-only ``splits`` given in the JAX package's layout."""
-    if splits is None:
-        trains, tests = _random_splits(m, cfg.cc_frac, n_restarts, generator)
-    else:
-        trains, tests = (torch.tensor(np.asarray(s), dtype=torch.int64)
-                         for s in splits)
-    return trains.to(dev), tests.to(dev)
+    with span("setup.splits"):
+        if splits is None:
+            trains, tests = _random_splits(m, cfg.cc_frac, n_restarts,
+                                           generator)
+        else:
+            trains, tests = (torch.tensor(np.asarray(s), dtype=torch.int64)
+                             for s in splits)
+        return trains.to(dev), tests.to(dev)
 
 
 def _ladders(nt: int, nr: int, n: int, cfg: AdmmConfig, prox_kind: str,
@@ -646,49 +678,55 @@ def solve_lowrank_multi_pair_batch(generator: Optional[torch.Generator],
     m, n = a.re.shape
     dev = a.re.device
 
-    # active-row accounting: b == 0 rows are inactive padding by contract;
-    # one shared codebook admits only one active count
-    counts = torch.sum(b_batch > 0, dim=1).cpu().numpy()
-    m_act = int(counts[0]) if batch else m
-    if batch and not (counts == m_act).all():
-        raise ValueError(
-            "solve_lowrank_multi_pair_batch shares one codebook across the "
-            "batch, so every instance must have the same active (b > 0) row "
-            f"count; got {sorted(set(counts.tolist()))}.  b == 0 marks an "
-            "INACTIVE padding row by contract (real measured amplitudes "
-            "are strictly positive, A2only.m:130-139) -- if these zeros are "
-            "genuine measurements, clamp them to a tiny positive floor; "
-            "otherwise pad uniformly.")
-    m_act = max(m_act, 1)
+    with span("pair.batch"):
+        # active-row accounting: b == 0 rows are inactive padding by
+        # contract; one shared codebook admits only one active count
+        with span("setup.active_rows"):
+            counts = torch.sum(b_batch > 0, dim=1).cpu().numpy()
+        m_act = int(counts[0]) if batch else m
+        if batch and not (counts == m_act).all():
+            raise ValueError(
+                "solve_lowrank_multi_pair_batch shares one codebook across "
+                "the batch, so every instance must have the same active "
+                f"(b > 0) row count; got {sorted(set(counts.tolist()))}.  "
+                "b == 0 marks an INACTIVE padding row by contract (real "
+                "measured amplitudes are strictly positive, "
+                "A2only.m:130-139) -- if these zeros are genuine "
+                "measurements, clamp them to a tiny positive floor; "
+                "otherwise pad uniformly.")
+        m_act = max(m_act, 1)
 
-    trains, tests = _splits(splits, m, cfg, n_restarts, generator, dev)
-    if xs is not None:
-        xs = Pair(xs.re.transpose(0, 1).contiguous(),
-                  xs.im.transpose(0, 1).contiguous())
-    lm_tr = int(math.floor(m_act * cfg.cc_frac))
-    ladder = _ladders(nt, nr, n, cfg, prox_kind, dev)
+        trains, tests = _splits(splits, m, cfg, n_restarts, generator, dev)
+        if xs is not None:
+            xs = Pair(xs.re.transpose(0, 1).contiguous(),
+                      xs.im.transpose(0, 1).contiguous())
+        lm_tr = int(math.floor(m_act * cfg.cc_frac))
+        ladder = _ladders(nt, nr, n, cfg, prox_kind, dev)
 
-    with no_tf32():
-        fp = _batch_first_pass(a, b_batch, trains, tests,
-                               ladder(lm_tr, False), nt, nr, cfg, m_act,
-                               generator, xs, prox_kind)
-        x = Pair(fp.x.re[:, :, 0].clone(), fp.x.im[:, :, 0].clone())
-        q, it = fp.q, fp.it.sum(-1)                             # (R, B)
-        rank_one = torch.zeros_like(q, dtype=torch.bool)
-        poor = (q < cfg.quality_threshold).cpu()                # host gate
-        if prox_kind != "nuclear" and bool(poor.any()):
-            rest_idx, inst_idx = (i.to(dev) for i in torch.nonzero(
-                poor, as_tuple=True))
-            xr, qr, itr = _batch_retry(fp, rest_idx, inst_idx, trains, tests,
-                                       ladder(lm_tr, True), nt, nr, cfg)
-            x.re[rest_idx, inst_idx] = xr.re
-            x.im[rest_idx, inst_idx] = xr.im
-            q = q.index_put((rest_idx, inst_idx), qr)
-            it = it.index_put((rest_idx, inst_idx), itr, accumulate=True)
-            rank_one[rest_idx, inst_idx] = True
-        return _batch_refine(fp, x, q, it.sum(0), rank_one,
-                             ladder(m_act, False), ladder(m_act, True),
-                             nt, nr, cfg, prox_kind)
+        with no_tf32():
+            fp = _batch_first_pass(a, b_batch, trains, tests,
+                                   ladder(lm_tr, False), nt, nr, cfg, m_act,
+                                   generator, xs, prox_kind)
+            x = Pair(fp.x.re[:, :, 0].clone(), fp.x.im[:, :, 0].clone())
+            q, it = fp.q, fp.it.sum(-1)                             # (R, B)
+            rank_one = torch.zeros_like(q, dtype=torch.bool)
+            with span("scaffold.gate"):
+                poor = (q < cfg.quality_threshold).cpu()            # host gate
+                retry = prox_kind != "nuclear" and bool(poor.any())
+            if retry:
+                rest_idx, inst_idx = (i.to(dev) for i in torch.nonzero(
+                    poor, as_tuple=True))
+                xr, qr, itr = _batch_retry(fp, rest_idx, inst_idx, trains,
+                                           tests, ladder(lm_tr, True), nt, nr,
+                                           cfg)
+                x.re[rest_idx, inst_idx] = xr.re
+                x.im[rest_idx, inst_idx] = xr.im
+                q = q.index_put((rest_idx, inst_idx), qr)
+                it = it.index_put((rest_idx, inst_idx), itr, accumulate=True)
+                rank_one[rest_idx, inst_idx] = True
+            return _batch_refine(fp, x, q, it.sum(0), rank_one,
+                                 ladder(m_act, False), ladder(m_act, True),
+                                 nt, nr, cfg, prox_kind)
 
 
 def solve_lowrank_multi_pair(generator: Optional[torch.Generator], a: Pair,
@@ -730,56 +768,67 @@ def solve_lowrank_multi_pair(generator: Optional[torch.Generator], a: Pair,
     m, n = a.re.shape
     dev = a.re.device
     r = min(cfg.rank, m, n)
-    a_n, b_n, a_norm, b_norm = _normalize_problem_pair(a, b, cfg.tol_abs)
-    lm_full = m if ladder_m is None else ladder_m
-    lm_tr = int(math.floor(lm_full * cfg.cc_frac))
-    ladder = _ladders(nt, nr, n, cfg, prox_kind, dev)
-    trains, tests = _splits(splits, m, cfg, n_restarts, generator, dev)
-    a_tr, a_te = _rows(a_n, trains), _rows(a_n, tests)          # (R, k, n)
-    b_tr, b_te = b_n[trains][:, None], b_n[tests][:, None]      # (R, 1, k)
-    u_tr = precompute_u_pair(a_tr)
+    with span("pair.single"):
+        a_n, b_n, a_norm, b_norm = _normalize_problem_pair(a, b, cfg.tol_abs)
+        lm_full = m if ladder_m is None else ladder_m
+        lm_tr = int(math.floor(lm_full * cfg.cc_frac))
+        ladder = _ladders(nt, nr, n, cfg, prox_kind, dev)
+        trains, tests = _splits(splits, m, cfg, n_restarts, generator, dev)
+        a_tr, a_te = _rows(a_n, trains), _rows(a_n, tests)      # (R, k, n)
+        b_tr, b_te = b_n[trains][:, None], b_n[tests][:, None]  # (R, 1, k)
+        u_tr = precompute_u_pair(a_tr)
 
-    with no_tf32():
-        if xs is None:
-            xs = spectral_initialize_pair(a_tr, b_tr, r, generator)
-        else:
-            xs = Pair(xs.re[:, None].to(dev), xs.im[:, None].to(dev))
-        x, _, it = _impl_pair(a_tr, b_tr, xs, nt, nr, cfg,
-                              ladder(lm_tr, False), u_tr, prox_kind)
-        q = _quality_pair(a_te, b_te, x)[:, 0]                  # (R,)
-        it = it.sum(-1)[:, 0]
-        x = Pair(x.re[:, 0, 0].clone(), x.im[:, 0, 0].clone())  # (R, n)
-        rank_one = np.zeros(n_restarts, dtype=bool)
-        if prox_kind != "nuclear":
-            poor = (q < cfg.quality_threshold).cpu().numpy()    # host gate
-            if poor.any():
-                # JAX re-solves every restart and keeps the poor ones;
-                # solving only the poor ones gives the same x, q and iters
-                idx = torch.as_tensor(np.nonzero(poor)[0], device=dev)
-                xr, _, itr = _impl_pair(
-                    _rows(a_tr, idx), b_tr[idx], _rows(xs, idx), nt, nr, cfg,
-                    ladder(lm_tr, True), _rows(u_tr, idx))
-                q[idx] = _quality_pair(_rows(a_te, idx), b_te[idx], xr)[:, 0]
-                x.re[idx] = xr.re[:, 0, 0]
-                x.im[idx] = xr.im[:, 0, 0]
-                it[idx] += itr.sum(-1)[:, 0]
-                rank_one = poor
+        with no_tf32():
+            with span("stage.first_pass"):
+                if xs is None:
+                    xs = spectral_initialize_pair(a_tr, b_tr, r, generator)
+                else:
+                    xs = Pair(xs.re[:, None].to(dev), xs.im[:, None].to(dev))
+                x, _, it = _impl_pair(a_tr, b_tr, xs, nt, nr, cfg,
+                                      ladder(lm_tr, False), u_tr, prox_kind)
+                q = _quality_pair(a_te, b_te, x)[:, 0]              # (R,)
+                it = it.sum(-1)[:, 0]
+                x = Pair(x.re[:, 0, 0].clone(), x.im[:, 0, 0].clone())
+            rank_one = np.zeros(n_restarts, dtype=bool)
+            if prox_kind != "nuclear":
+                with span("scaffold.gate"):
+                    poor = (q < cfg.quality_threshold).cpu().numpy()
+                if poor.any():
+                    # JAX re-solves every restart and keeps the poor ones;
+                    # solving only the poor ones gives the same x, q and
+                    # iters
+                    with span("stage.retry"):
+                        idx = torch.as_tensor(np.nonzero(poor)[0],
+                                              device=dev)
+                        xr, _, itr = _impl_pair(
+                            _rows(a_tr, idx), b_tr[idx], _rows(xs, idx), nt,
+                            nr, cfg, ladder(lm_tr, True), _rows(u_tr, idx))
+                        q[idx] = _quality_pair(_rows(a_te, idx), b_te[idx],
+                                               xr)[:, 0]
+                        x.re[idx] = xr.re[:, 0, 0]
+                        x.im[idx] = xr.im[:, 0, 0]
+                        it[idx] += itr.sum(-1)[:, 0]
+                    rank_one = poor
 
-        j = int(torch.argmax(q))                                # first max
-        q_max = q[j]
-        x_max = Pair(x.re[j][None, None, None], x.im[j][None, None, None])
-        a_full = Pair(a_n.re[None], a_n.im[None])               # (1, m, n)
-        x_ref, _, _, it_ref = infer_admm_pair(
-            a_full, b_n[None, None], x_max, scale_by_row=True, nt=nt, nr=nr,
-            ladder=ladder(lm_full, bool(rank_one[j])), prox_kind=prox_kind,
-            mu0=cfg.mu0, rho=cfg.rho, tol_rel=cfg.tol_rel,
-            tol_abs=cfg.tol_abs, maxiter=cfg.maxiter)
-        xo = _rollback(x_max, x_ref, q_max, cfg)
-    s = b_norm / a_norm
-    return PairAdmmResult(
-        x=Pair(xo.re[0, 0, 0] * s, xo.im[0, 0, 0] * s), quality=q_max,
-        converged=torch.ones((), dtype=torch.bool, device=dev),
-        iters=it.sum() + it_ref[0, 0])
+            with span("stage.refine"):
+                with span("scaffold.select"):
+                    j = int(torch.argmax(q))                        # first max
+                    q_max = q[j]
+                    x_max = Pair(x.re[j][None, None, None],
+                                 x.im[j][None, None, None])
+                a_full = Pair(a_n.re[None], a_n.im[None])           # (1, m, n)
+                x_ref, _, _, it_ref = infer_admm_pair(
+                    a_full, b_n[None, None], x_max, scale_by_row=True, nt=nt,
+                    nr=nr, ladder=ladder(lm_full, bool(rank_one[j])),
+                    prox_kind=prox_kind, mu0=cfg.mu0, rho=cfg.rho,
+                    tol_rel=cfg.tol_rel, tol_abs=cfg.tol_abs,
+                    maxiter=cfg.maxiter)
+                xo = _rollback(x_max, x_ref, q_max, cfg)
+        s = b_norm / a_norm
+        return PairAdmmResult(
+            x=Pair(xo.re[0, 0, 0] * s, xo.im[0, 0, 0] * s), quality=q_max,
+            converged=torch.ones((), dtype=torch.bool, device=dev),
+            iters=it.sum() + it_ref[0, 0])
 
 
 def refine_lowrank_pair(a: Pair, b, x0: Pair, nt: int, nr: int,
