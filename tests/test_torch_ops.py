@@ -6,6 +6,7 @@ Tolerances are float32's: ~1e-6 absolute on unit-scale elementwise ops,
 another order, and looser only where stated.
 """
 
+import functools
 import math
 
 import jax
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 from torch_parity import (assert_pair_close, codebook, jpair, np_pair,
-                          rand_pair_np, tpair)
+                          rand_pair_np, steer, tpair)
 from twoace_tpu.ops import cplx as jc
 from twoace_tpu.ops import pair_solver as jps
 from twoace_tpu.ops import prox as jprox
@@ -226,6 +227,96 @@ def test_spectral_initialize_pair_matches_jax_gauge_invariant():
     wj = np.asarray(want.re) + 1j * np.asarray(want.im)
     pt, pj = gt.T @ gt.conj(), wj.T @ wj.conj()
     np.testing.assert_allclose(pt, pj, atol=1e-4 * np.abs(pj).max())
+
+
+#: (G, P, n, r) of the Cholesky-QR cases: a toy block, the 16x16 batch
+#: scaffold's restarts and lanes, the 32x32 width
+CHOLQR_SHAPES = [(1, 1, 16, 3), (3, 4, 256, 20), (1, 2, 1024, 20)]
+
+
+@functools.lru_cache(maxsize=None)
+def _two_path_gram(g_, p_, n):
+    """The spectral init's scaled Gram (G, P, n, n), made Hermitian and
+    scaled to unit mean eigenvalue, of P two-path channels a group (a ULA
+    of sqrt(n) elements at each end, angles uniform in +-1.2 rad, complex
+    Gaussian gains) measured through G codebooks of m = 2n probes; and a
+    complex Gaussian start block (G, P, n, 20)."""
+    rng = np.random.default_rng(n + 16 * p_ + g_)
+    k, m = math.isqrt(n), 2 * n
+    a = np.stack([codebook(rng, m, n) for _ in range(g_)])
+    h = np.zeros((g_, p_, n), np.complex128)
+    for _ in range(2):                       # two paths
+        ang = rng.uniform(-1.2, 1.2, (g_, p_, 2))
+        gain = rng.normal(size=(g_, p_)) + 1j * rng.normal(size=(g_, p_))
+        for i, j in np.ndindex(g_, p_):
+            h[i, j] += gain[i, j] * np.kron(steer(k, ang[i, j, 1]).conj(),
+                                            steer(k, ang[i, j, 0]))
+    b = np.abs(np.einsum("gmn,gpn->gpm", a, h)).astype(np.float32)
+    gram = tps.scaled_gram_pair(tpair(a.real, a.imag), torch.tensor(b))
+    gram = 0.5 * (gram + gram.mH)
+    tr = torch.diagonal(gram, dim1=-2, dim2=-1).real.sum(-1)
+    q = torch.complex(*(torch.tensor(rng.normal(size=(g_, p_, n, 20)),
+                                     dtype=torch.float32) for _ in range(2)))
+    return gram / (tr / n)[..., None, None], q
+
+
+def _cholqr_block(shape, start):
+    """A (G, P, n, r) complex64 block for _cholqr2: the random start
+    block; the block trip k of the spectral init's orthogonal iteration
+    hands it, gram @ Q_{k-1} with Q_{k-1} an orthonormal basis of
+    gram^{k-1} q (condition numbers 1.3-3.2 here); or the start block
+    with its singular values set to span 1 to 1e-3."""
+    g_, p_, n, r = shape
+    gram, q = _two_path_gram(g_, p_, n)
+    z = q[..., :r].to(torch.complex128)
+    if start == "cond1e3":
+        u, _, vh = torch.linalg.svd(z, full_matrices=False)
+        s = torch.logspace(0, -3, r, dtype=torch.float64)
+        return ((u * s.to(u.dtype)) @ vh).to(torch.complex64)
+    for _ in range(0 if start == "random" else int(start[4:])):
+        z = gram.to(torch.complex128) @ torch.linalg.qr(z).Q
+    return z.to(torch.complex64)
+
+
+@pytest.mark.parametrize("start", ["random", "trip1", "trip12", "cond1e3"])
+@pytest.mark.parametrize("shape", CHOLQR_SHAPES)
+def test_cholqr2_orthonormal_basis_of_householder_subspace(shape, start):
+    """_cholqr2 gives orthonormal columns spanning the subspace a
+    Householder QR finds, on the blocks the spectral init orthonormalises
+    and on a block of condition number 1e3.  The reference is taken in
+    complex128.  Two float32 rounds with the reference's shift hold to
+    condition numbers of a few thousand; at ~1e4 and beyond (an
+    unnormalised gram^12 q) the first Cholesky breaks down, which the
+    iteration, orthonormalising every trip, never meets."""
+    z = _cholqr_block(shape, start)
+    got = tps._cholqr2(z)
+    assert got.dtype == torch.complex64 and got.shape == z.shape
+    eye = torch.eye(z.shape[-1], dtype=got.dtype)
+    assert float((got.mH @ got - eye).abs().max()) <= 1e-5
+    ref = torch.linalg.qr(z.to(torch.complex128)).Q
+    want = ref @ ref.mH
+    err = (got.to(torch.complex128) @ got.mH.to(torch.complex128) - want)
+    assert float(err.abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("shape", CHOLQR_SHAPES[:2])
+def test_top_r_init_matches_householder_iteration(shape):
+    """top_r_init at 12 trips against the same iteration orthonormalised
+    by Householder QR, on X0 X0^H (blind to the basis of each step)."""
+    g_, p_, n, r = shape
+    gram, q = _two_path_gram(g_, p_, n)
+    q = q[..., :r]
+    got = tps.top_r_init(gram, q, iters=12)
+    qh = torch.linalg.qr(q).Q
+    for _ in range(12):
+        qh = torch.linalg.qr(gram @ qh).Q
+    rr = qh.mH @ (gram @ qh)
+    w, v = torch.linalg.eigh(0.5 * (rr + rr.mH))
+    want = (qh @ v) * torch.sqrt(torch.clamp(w, min=0.0))[..., None, :]
+    xt = torch.complex(got.re, got.im).transpose(-1, -2)       # (.., n, r)
+    pt, pw = xt @ xt.mH, want @ want.mH
+    torch.testing.assert_close(pt, pw, rtol=0,
+                               atol=1e-4 * float(pw.abs().max()))
 
 
 def test_nmse_h_projection_matches_jax():

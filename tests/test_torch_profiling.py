@@ -2,7 +2,11 @@
 solvers: spans and lane-trip records of the batch and single entries at
 4x4 on the CPU, nothing kept without a profiler, and on the card (``gpu``)
 a CUDA-only profiler session turning recording on with one K3 record a
-launch.  Imports no JAX: the ``gpu`` test runs here."""
+launch, and the spectral init's orthonormalisation steps as batched
+launches with a span each.  Imports no JAX: the ``gpu`` tests run on the
+card."""
+
+import collections
 
 import numpy as np
 import pytest
@@ -26,7 +30,8 @@ SINGLE_CFG = AdmmConfig(rank=R, maxiter=60, n_restarts=2,
 #: the span names each entry opens under its root, a retry included
 SETUP = {"setup.splits", "setup.normalize", "setup.precompute_u",
          "setup.spectral_init", "setup.spectral_init.draw",
-         "setup.orthonormalize", "setup.admm_init"}
+         "setup.spectral_init.orth", "setup.orthonormalize",
+         "setup.admm_init"}
 NAMES = {
     "batch": SETUP | {"setup.active_rows", "stage.first_pass", "stage.retry",
                       "stage.refine", "inner.solve", "inner.check",
@@ -114,6 +119,9 @@ def test_spans_nest_under_one_root_per_solve(kind):
         draws = [sp for sp in mine if sp.name == "setup.spectral_init.draw"]
         assert [spans[sp.parent].name for sp in draws] == [
             "setup.spectral_init"]
+        orths = [sp for sp in mine if sp.name == "setup.spectral_init.orth"]
+        assert [spans[sp.parent].name for sp in orths] == [
+            "setup.spectral_init"] * 13           # the start block, 12 trips
         checks = [sp for sp in mine if sp.name == "inner.check"]
         assert {spans[sp.parent].name for sp in checks} == {"inner.solve"}
 
@@ -162,3 +170,69 @@ def test_cuda_profiler_records_one_k3_entry_a_launch():
     assert all(t.trips is None for t in trips)
     assert sum(t.active for t in trips) == int(res.iters.sum())
     assert [sp.name for sp in spans].count("inner.solve") == launches
+
+
+#: cuSOLVER's Householder QR kernels (geqrf's geqr2 and larft, ungqr/orgqr)
+HOUSEHOLDER = ("geqr", "larft", "ungqr", "orgqr")
+
+
+def _device_kernels(prof) -> list:
+    """Names of the device events of a finished CUDA-only session."""
+    from torch.autograd import DeviceType
+
+    results = prof.profiler.kineto_results
+    return [e.name() for e in results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not e.is_user_annotation()]
+
+
+@pytest.mark.gpu
+def test_spectral_init_orthonormalises_in_batched_launches_on_card():
+    """The batch scaffold's spectral init at 16x16 (3 groups, m 972, r 20)
+    on the card, at 1 lane a group and at 256: no Householder QR kernel
+    runs, each of the 13 orthonormalisations leaves one span, and one
+    orthonormalisation launches as many kernels at 256 lanes as at 1 (its
+    Cholesky and triangular solve are batched launches, not a loop over
+    the lanes).  The count is taken on the step itself: cuBLAS picks its
+    GEMM kernels by size, one more for the init's products at 256 lanes
+    than at 1 on torch 2.11."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(12)
+    g_, m, n, r = 3, 972, 256, 20
+    a = np.exp(1j * rng.integers(0, 4, (g_, m, n)) * np.pi / 2) / np.sqrt(n)
+    a_t = Pair(torch.tensor(a.real, dtype=torch.float32, device="cuda"),
+               torch.tensor(a.imag, dtype=torch.float32, device="cuda"))
+    counts = {}
+    for p_ in (1, 256):
+        h = rng.normal(size=(g_, p_, n)) + 1j * rng.normal(size=(g_, p_, n))
+        b = torch.tensor(np.abs(np.einsum("gmn,gpn->gpm", a, h)),
+                         dtype=torch.float32, device="cuda")
+
+        def init():
+            with tps.no_tf32():
+                return tps.spectral_initialize_pair(
+                    a_t, b, r, torch.Generator().manual_seed(p_))
+
+        z = torch.randn((g_, p_, n, r), dtype=torch.complex64,
+                        device="cuda")
+        init()                                  # handles, workspaces
+        tps._cholqr2(z)
+        torch.cuda.synchronize()
+        profiling.reset()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            x0 = init()
+            torch.cuda.synchronize()
+        assert x0.re.shape == (g_, p_, r, n)
+        assert bool(torch.isfinite(x0.re).all() & torch.isfinite(x0.im).all())
+        names = _device_kernels(prof)
+        assert not [k for k in names if any(h in k for h in HOUSEHOLDER)]
+        spans, _ = profiling.snapshot()
+        assert [sp.name for sp in spans].count(
+            "setup.spectral_init.orth") == 13
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tps._cholqr2(z)
+            torch.cuda.synchronize()
+        counts[p_] = collections.Counter(_device_kernels(prof))
+    assert sum(counts[1].values()) == sum(counts[256].values()), (
+        counts[1] - counts[256], counts[256] - counts[1])

@@ -26,18 +26,18 @@ Routing of an inner solve on CUDA tensors (:func:`infer_admm_pair`):
   Z-prox (the Z-free branch).
 
 No solve on a CUDA tensor falls back to a plain version.  The setup around
-the loop (Cholesky, eigh, QR, the quality gate, the retry gather and
+the loop (Cholesky, Cholesky-QR, eigh, the quality gate, the retry gather and
 scatter) is plain torch.  Only ``eig_mode="perturb"`` is ported: the Jacobi
 eigensolver existed because the TPU lacked ``eigh``.
 
 While a ``torch.profiler`` session is open, the two entries record their
 spans (:mod:`..utils.profiling`): the roots ``pair.batch`` and
 ``pair.single``; ``setup.*`` (the active-row read, the splits,
-normalisation, U, the spectral init and its CPU draw, the column
-orthonormalisation, each loop's initialisation); ``stage.*`` (first pass,
-retry, refine); ``inner.solve`` (one a loop: the per-op loop or one K3
-launch) with the loop's ``inner.check`` reads; and ``scaffold.*``
-(quality, the host gate, the selection, the rollback).
+normalisation, U, the spectral init with its CPU draw and its Cholesky-QR
+steps, the column orthonormalisation, each loop's initialisation);
+``stage.*`` (first pass, retry, refine); ``inner.solve`` (one a loop:
+the per-op loop or one K3 launch) with the loop's ``inner.check`` reads;
+and ``scaffold.*`` (quality, the host gate, the selection, the rollback).
 """
 
 from __future__ import annotations
@@ -101,7 +101,7 @@ class PairAdmmResult(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# setup (plain torch: Cholesky, QR, eigh)
+# setup (plain torch: Cholesky, Cholesky-QR, eigh)
 
 def precompute_u_pair(a: Pair, reg: float = 1.0,
                       reduce: RowHook = None) -> Pair:
@@ -137,8 +137,8 @@ def spectral_initialize_pair(a: Pair, b, r: int,
 
     ``a``: (G, m, n) codebook blocks; ``b``: (G, P, m).  Rows of A are
     scaled by b_i/||A_i||; the top-r eigenpairs of the scaled Gram come
-    from ``iters`` steps of complex orthogonal iteration (QR) and a
-    Rayleigh-Ritz ``eigh``, and are scaled by sqrt(eigenvalue).
+    from ``iters`` steps of complex orthogonal iteration (Cholesky-QR) and
+    a Rayleigh-Ritz ``eigh``, and are scaled by sqrt(eigenvalue).
     ref: inferLowRankV4_multi.m:561-574.  The start block is drawn from
     ``generator`` on the CPU, so a seed gives the same init on any device.
     """
@@ -164,14 +164,33 @@ def scaled_gram_pair(a: Pair, b) -> torch.Tensor:
     return (ac.mH[:, None] * (s * s)[..., None, :]) @ ac[:, None]
 
 
+def _cholqr2(z: torch.Tensor) -> torch.Tensor:
+    """Orthonormal columns spanning those of complex ``z`` (..., n, r) by
+    two rounds of Cholesky-QR, each batched over every leading index: the
+    r x r Gram with the JAX package's shift of 1e-7 trace / r, its
+    Cholesky factor C, and the solve Q C^H = z.  ``cholesky_ex`` reads no
+    ``info``, so nothing waits for the device.
+    ref: ``twoace_tpu.ops.pair_solver._cholqr``."""
+    with span("setup.spectral_init.orth"):
+        r = z.shape[-1]
+        for _ in range(2):
+            g = z.mH @ z
+            d = torch.diagonal(g, dim1=-2, dim2=-1)
+            d.add_(d.real.sum(-1, keepdim=True), alpha=1e-7 / r)
+            c = torch.linalg.cholesky_ex(g).L
+            z = torch.linalg.solve_triangular(c.mH, z, upper=True, left=False)
+        return z
+
+
 def top_r_init(gram: torch.Tensor, q: torch.Tensor, iters: int = 12) -> Pair:
     """X0^T (G, P, r, n) from the scaled Gram (G, P, n, n) and the start
-    block ``q`` (G, P, n, r), complex64 on any device: orthogonal iteration,
-    Rayleigh-Ritz ``eigh``, eigenvectors scaled by sqrt(eigenvalue)."""
+    block ``q`` (G, P, n, r), complex64 on any device: orthogonal iteration
+    orthonormalised by :func:`_cholqr2`, Rayleigh-Ritz ``eigh``,
+    eigenvectors scaled by sqrt(eigenvalue)."""
     gram = 0.5 * (gram + gram.mH)
-    q = torch.linalg.qr(q.to(gram.device)).Q
+    q = _cholqr2(q.to(gram.device))
     for _ in range(iters):
-        q = torch.linalg.qr(gram @ q).Q
+        q = _cholqr2(gram @ q)
     rr = q.mH @ (gram @ q)
     w, v = torch.linalg.eigh(0.5 * (rr + rr.mH))
     w, v = w.flip(-1), v.flip(-1)                              # descending
