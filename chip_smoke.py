@@ -113,7 +113,10 @@ the campaign's, the refine's, a tracker window's and the windowed
 inference's shapes, a ragged m and complex128, and K6 at the chain
 benchmark's batch and a ragged one, each with its host cost a call (2000 calls back to back) beside the
 launch floor (the profiler's device time of a one-element elementwise
-op).  Phase 2 also reads K1's, K2's, K4's, K5's and K6's (and complex64
+op).  It holds K7 (the per-op loop's trip glue) against its plain
+version over one trip of both passes at the batch cells' lane shapes
+(K7_SHAPES), with its device time, its bound and the plain glue's device
+time.  Phase 2 also reads K1's, K2's, K4's, K5's and K6's (and complex64
 ``torch.matmul``'s, beside K4) device time a launch from the profiler
 beside their CUDA-event times.  Phases 3, 4 and 5 print K4's launches
 by route.  Each path (the batch solve, the single solves, the
@@ -154,6 +157,7 @@ from twoace_tpu_torch.ops.kernels import (  # noqa: E402
     pair_chain_mm_plain, pair_matmul, pair_matmul_plain,
     prox_dual_rows_plain, prox_dual_t_plain, reset_launch_counts,
     zprox_t_plain)
+from twoace_tpu_torch.ops.kernels import admm_trip as k7  # noqa: E402
 from twoace_tpu_torch.ops.kernels.pair_matmul import (  # noqa: E402
     route as k4_route)
 from twoace_tpu_torch.ops.pair_solver import (  # noqa: E402
@@ -494,6 +498,18 @@ K2_SHARDED_SHAPES = ([(g, r, NT, NR) for g, r in SHARDED_GROUPS]
 K5_SHARDED_SHAPES = [(m, r, torch.complex64, pe) for m in SHARDED_MS
                      for r, pe in ((R, False), (R, True), (1, False))]
 
+#: K7's shapes (G, P, r, nt, m), one trip of each pass: the batch cells'
+#: first pass, batch256's (3 restarts x 256 channels, r 20, 16x16, the
+#: train split's m 972) and batch32's (3 x 32, r 20, 32x32, m 3891: rows
+#: that start off a 16-byte boundary)
+K7_SHAPES = ((RESTARTS, 256, R, NT, M_TRAIN), (RESTARTS, 32, R, 32, 3891))
+#: K7 against its plain version over one trip: every field the passes and
+#: K4, K1, K2 give elementwise bit for bit, the fields made from sums
+#: (last_res, opt_obj) within this relative tolerance: the passes add in
+#: another order than torch's reductions, over up to 20 x 3891 terms
+K7_RTOL = 2e-5
+#: trips of one profiler session of K7's timing
+K7_REPS = 10
 #: H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 flop/s
 #: outside the tensor cores, dense TF32 flop/s on the tensor cores
 PEAK_BYTES = 3.35e12
@@ -801,6 +817,7 @@ def phase2_kernels():
 
     summary["fused_zprox_t"] = phase2_k2()
     summary["pair_matmul"] = phase2_k4()
+    summary["admm_trip"] = phase2_k7()
     floor = launch_floor_ms(device_ms)
     print(f"[2 launch floor] a one-element elementwise op: device "
           f"{fmt_ms(floor)} per launch (profiler); the floor for reading K5 "
@@ -813,6 +830,161 @@ def phase2_kernels():
     print_k3_phases(*k3_timed)
     print_k2_phases()
     return summary
+
+
+def k7_case(g_, p_, r, nt, m, scale_by_row, seed=7):
+    """One trip's loop and a drawn lane state at (G, P, r, nt x nt, m): a
+    random-phase block a group, two-path channels, the state from the
+    solver's initialization with noise on Y, small duals, mu in [1e-3,
+    0.5], and a third of the lanes not active (at the bound of 12 or
+    converged)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = nt * nt
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    phase = torch.randint(0, 4, (g_, m, n), generator=gen, device="cuda")
+    a = Pair(torch.cos(phase * np.pi / 2) / n ** 0.5,
+             torch.sin(phase * np.pi / 2) / n ** 0.5)
+    h = Pair(randn(g_, p_, n) + randn(g_, p_, n),
+             randn(g_, p_, n) + randn(g_, p_, n))
+    b = torch.sqrt((torch.einsum("gmn,gpn->gpm", a.re, h.re)
+                    - torch.einsum("gmn,gpn->gpm", a.im, h.im)) ** 2
+                   + (torch.einsum("gmn,gpn->gpm", a.re, h.im)
+                      + torch.einsum("gmn,gpn->gpm", a.im, h.re)) ** 2)
+    lad = profile_ladder_arrays(nt, nt, m, n, False, device="cuda")
+    lanes = g_ * p_
+    lad_l = LadderArrays(lad.ranks.expand(lanes, -1).contiguous(),
+                         lad.fracs.expand(lanes, -1).contiguous())
+    with no_tf32():
+        u = pair_solver.precompute_u_pair(a)
+        y, z, v = pair_solver.admm_init_pair(
+            a, b, Pair(randn(g_, p_, r, n), randn(g_, p_, r, n)),
+            scale_by_row=scale_by_row, nt=nt, nr=nt,
+            ladder=LadderArrays(lad.ranks.expand(g_, p_, -1),
+                                lad.fracs.expand(g_, p_, -1)))
+    a_t = Pair(a.re.mT.contiguous(), a.im.mT.contiguous())
+    loop = k7.Loop(a_t, Pair(a.re, -a.im),
+                   Pair(u.re.contiguous(), (-u.im).contiguous()),
+                   b.reshape(lanes, m),
+                   pair_gemm=pair_matmul, prox_dual=fused_prox_dual_t,
+                   z_prox=lambda zz, vv, mu: fused_zprox_t(zz, vv, nt, nt,
+                                                           lad_l),
+                   anchor=None, reduce=None, scale_by_row=scale_by_row,
+                   rho=1.03, tol_rel=1e-4, tol_abs=1e-8, m=m, n=n, r=r,
+                   m_thr=m)
+    k_opt = r if scale_by_row else 1
+    it = torch.randint(0, 12, (g_, p_), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    conv = torch.rand((g_, p_), generator=gen, device="cuda") < 0.2
+    it.view(-1)[::3] = 12
+    scale = float(b.max())
+    state = k7.LoopState(
+        y=Pair(y.re + 0.1 * scale * randn(*y.re.shape),
+               y.im + 0.1 * scale * randn(*y.re.shape)),
+        z=z, m_dual=Pair(1e-3 * randn(g_, p_, r, m),
+                         1e-3 * randn(g_, p_, r, m)),
+        n_dual=Pair(1e-3 * randn(g_, p_, r, n), 1e-3 * randn(g_, p_, r, n)),
+        aty=loop.ah_sum(y), v_basis=v,
+        mu=torch.rand((g_, p_), generator=gen, device="cuda") * 0.5 + 1e-3,
+        last_res=torch.rand((g_, p_), generator=gen, device="cuda"),
+        opt_obj=torch.full((g_, p_), float("inf"), device="cuda"),
+        opt_x=Pair(randn(g_, p_, k_opt, n), randn(g_, p_, k_opt, n)),
+        opt_y=Pair(randn(g_, p_, k_opt, m), randn(g_, p_, k_opt, m)),
+        it=it, converged=conv)
+    return loop, state
+
+
+def k7_held(loop, state):
+    """One trip through K7 against one through the plain version on the
+    card, from ``state``; returns the largest relative difference of the
+    sums' fields."""
+    want = k7.trip_plain(state, loop, 12)
+    got = k7.admm_trip(state, loop, 12)
+    torch.cuda.synchronize()
+    rel = 0.0
+    for name, g, w in zip(k7.LoopState._fields, got, want):
+        for gt, wt in (zip(g, w) if isinstance(g, Pair) else [(g, w)]):
+            if name in ("last_res", "opt_obj"):
+                torch.testing.assert_close(gt, wt, rtol=K7_RTOL, atol=0.0)
+                fin = torch.isfinite(wt)
+                rel = max(rel, float(((gt - wt)[fin].abs()
+                                      / wt[fin].abs()).max()))
+            elif not torch.equal(gt, wt):
+                raise AssertionError(f"K7: {name} differs from the plain "
+                                     f"version")
+    return rel
+
+
+def k7_device_ms(trip, reps=K7_REPS):
+    """Device ms of one trip of ``trip()``, split into K7's passes, the
+    loop's kernels K4, K1 and K2, and the rest (the plain version's torch
+    glue), from a CUDA-only profiler session; None where a session of
+    three saw a pass or kernel missing from any of its trips."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def part(name):
+        if "admm_trip" in name:
+            return "k7"
+        if any(k in name for k in ("pair_mm", "prox_dual_t", "zprox_kernel")):
+            return "k4_k1_k2"
+        return "glue"
+
+    trip()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                trip()
+            torch.cuda.synchronize()
+        out, counts = {"k7": 0.0, "k4_k1_k2": 0.0, "glue": 0.0}, {}
+        for name, (ms, count) in device_events(prof).items():
+            out[part(name)] += ms / reps
+            counts[part(name)] = counts.get(part(name), 0) + count
+        if all(c % reps == 0 for c in counts.values()):
+            return out
+    return None
+
+
+def k7_bytes(r, m, n):
+    """K7's counted bytes a lane trip with a Z-prox
+    (``port_bench/metrics/k7_roofline_pct.py``)."""
+    return 8.0 * (6 * r * m + 14 * r * n) + 4.0 * m
+
+
+def phase2_k7():
+    """K7 against its plain version over one trip of each pass at
+    K7_SHAPES, with its device time a trip, its bound and the plain
+    glue's device time."""
+    rel, rows = 0.0, {}
+    for g_, p_, r, nt, m in K7_SHAPES:
+        n = nt * nt
+        for scale_by_row in (True, False):
+            loop, state = k7_case(g_, p_, r, nt, m, scale_by_row)
+            rel = max(rel, k7_held(loop, state))
+            fast = k7_device_ms(lambda: k7.admm_trip(state, loop, 1000))
+            plain = k7_device_ms(lambda: k7.trip_plain(state, loop, 1000))
+            lanes = g_ * p_
+            bnd = bound(lanes * k7_bytes(r, m, n), 0.0)["bound_ms"]
+            form = "row-scaled" if scale_by_row else "per-column"
+            if fast is None or plain is None:
+                print(f"[2 K7 admm_trip] {form} lanes {lanes} r {r} "
+                      f"{nt}x{nt} m {m}: held; device time not measured",
+                      flush=True)
+                continue
+            rows[(m, scale_by_row)] = (fast["k7"], plain["glue"], bnd)
+            print(f"[2 K7 admm_trip] {form} lanes {lanes} r {r} {nt}x{nt} "
+                  f"m {m}: held (sums within {rel:.2e}) | K7 device "
+                  f"{fast['k7']:.4f} ms a trip, bound {bnd:.4f} ms "
+                  f"({100 * bnd / fast['k7']:.1f}%) | plain glue "
+                  f"{plain['glue']:.4f} ms (K7's trip: {fast['glue']:.4f} "
+                  f"ms of other kernels) | K4+K1+K2 {fast['k4_k1_k2']:.4f} "
+                  f"/ {plain['k4_k1_k2']:.4f} ms", flush=True)
+    head = rows.get((M_TRAIN, True), (None, None, None))
+    return dict(max_abs_err=rel, ms=head[0], plain_ms=head[1],
+                device_ms=head[0], bound_ms=head[2], bound_by="bytes",
+                library_ms=None)
 
 
 def k6_case(batch, seed=6):
@@ -3109,7 +3281,11 @@ def main():
                "fused_prox_dual": ("twoace_tpu_torch/csrc/prox_dual_rows.cu",
                                    "twoace_tpu/ops/pallas/kernels.py:55"),
                "pair_chain_mm": ("twoace_tpu_torch/csrc/chain_mm.cu",
-                                 "scripts/bench_pallas_mm.py:76")}
+                                 "scripts/bench_pallas_mm.py:76"),
+               "admm_trip": ("twoace_tpu_torch/csrc/admm_trip.cu",
+                             "none: XLA fused this glue in the jitted loop")}
+    launches["admm_trip"] = sum(launches.get(fn.__name__, 0)
+                                for fn in k7.PASSES)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **summary[name])
                for name, (src, rep) in sources.items()]

@@ -49,6 +49,7 @@ def emulated(a, b, u, y0, z0, v0, mu0, ladder, *, nt, nr, scale_by_row,
     """The plain version with 3xTF32 products (``infer_admm_plain`` with
     ``pair_matmul_tf32_emulated`` in place of the float32 product)."""
     from twoace_tpu_torch.ops.admm_loop import admm_loop
+    from twoace_tpu_torch.ops.kernels.admm_trip import trip_plain
     from twoace_tpu_torch.ops.kernels.pair_matmul import (
         pair_matmul_tf32_emulated)
     from twoace_tpu_torch.ops.kernels.prox_dual import prox_dual_t_plain
@@ -59,8 +60,9 @@ def emulated(a, b, u, y0, z0, v0, mu0, ladder, *, nt, nr, scale_by_row,
 
     return admm_loop(a, b, u, y0, z0, v0, mu0, scale_by_row=scale_by_row,
                      pair_gemm=pair_matmul_tf32_emulated,
-                     prox_dual=prox_dual_t_plain, z_prox=z_prox, rho=rho,
-                     tol_rel=tol_rel, tol_abs=tol_abs, maxiter=maxiter)
+                     prox_dual=prox_dual_t_plain, z_prox=z_prox,
+                     trip=trip_plain, rho=rho, tol_rel=tol_rel,
+                     tol_abs=tol_abs, maxiter=maxiter)
 
 
 def objective(args, out):

@@ -163,7 +163,10 @@ def test_cpu_calls_count_no_launches():
                                        "fused_infer_admm": 0,
                                        "pair_matmul": 0,
                                        "fused_prox_dual": 0,
-                                       "pair_chain_mm": 0}
+                                       "pair_chain_mm": 0,
+                                       "trip_shift": 0, "trip_rhs": 0,
+                                       "trip_rows": 0, "trip_n_dual": 0,
+                                       "trip_commit": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -208,8 +211,9 @@ def test_build_is_keyed_by_the_sources(tmp_path, monkeypatch):
     """nvcc gets the .cu files; the library's name hashes them and the
     headers they include, so a changed header cannot load a stale build."""
     names = sorted(p.name for p in _build.sources())
-    assert names == ["chain_mm.cu", "infer_admm.cu", "pair_matmul.cu",
-                     "prox_dual.cu", "prox_dual_rows.cu", "zprox.cu"]
+    assert names == ["admm_trip.cu", "chain_mm.cu", "infer_admm.cu",
+                     "pair_matmul.cu", "prox_dual.cu", "prox_dual_rows.cu",
+                     "zprox.cu"]
     assert "zprox_core.cuh" in [p.name for p in _build.hashed_files()]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR

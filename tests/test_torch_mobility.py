@@ -30,6 +30,7 @@ from twoace_tpu_torch.ops.admm_loop import admm_loop
 from twoace_tpu_torch.ops.cplx import LadderArrays, Pair, matmul
 from twoace_tpu_torch.ops.kernels import pair_matmul_plain, prox_dual_t_plain
 from twoace_tpu_torch.ops.kernels import zprox_t_plain
+from twoace_tpu_torch.ops.kernels.admm_trip import trip_plain
 from twoace_tpu_torch.ops.prox import profile_ladder_arrays
 from twoace_tpu_torch.pipeline import mobility as tmob
 
@@ -287,7 +288,8 @@ def test_loop_with_plain_k4_matches_the_loop_before_k4(warm_iters):
         return zprox_t_plain(z, v, NT, NR, lad)
 
     kw = dict(scale_by_row=True, prox_dual=prox_dual_t_plain, z_prox=z_prox,
-              rho=1.03, tol_rel=1e-2, tol_abs=1e-8, warm_iters=warm_iters)
+              trip=trip_plain, rho=1.03, tol_rel=1e-2, tol_abs=1e-8,
+              warm_iters=warm_iters)
     for maxiter in (1, 2, 5, 12, 40):
         seen.clear()
         got = admm_loop(*args, pair_gemm=spy, maxiter=maxiter, **kw)

@@ -1,23 +1,24 @@
 """The InferADMM loop of every lane, after its initialization.
 
-One body serves two callers (ref: inferLowRankV4_multi.m:281-386):
+One loop serves two callers (ref: inferLowRankV4_multi.m:281-386):
 
 - the per-op route of :func:`.pair_solver.infer_admm_pair`, which hands
   it the CUDA kernels K4 (pair GEMM), K1 (magnitude prox + M-dual) and
   K2 (warm Z-prox), the nuclear prox, or no Z-prox at all (the Z-free
-  branch: K4 and K1 only);
+  branch: K4 and K1 only), and K7's trip
+  (:func:`.kernels.admm_trip.admm_trip`: the trip's glue, everything but
+  the products and the proxes, in CUDA passes);
 - the plain version of the loop kernel K3
   (:func:`.kernels.infer_admm.infer_admm_plain`), which hands it K4's,
-  K1's and K2's plain versions.
+  K1's, K2's and K7's plain versions.
 
 Lanes are laid out (G, P, ...): G groups share one codebook block and its
 U, P lanes ride each group, so each pair GEMM folds (P, r) into the rows
 of one batched product per group.  Each lane carries a
-``converged`` mask; a finished lane's state is frozen with
-``torch.where`` and its trip count ``it`` stops, so ``it`` keeps JAX's
-meaning (the trips each lane ran).  Whether any lane is still active is
-read on the host once every ``CHECK_EVERY`` trips; the extra frozen trips
-change nothing.
+``converged`` mask; a finished lane keeps its state and its trip count
+``it`` stops, so ``it`` keeps JAX's meaning (the trips each lane ran).
+Whether any lane is still active is read on the host once every
+``CHECK_EVERY`` trips; the extra frozen trips change nothing.
 
 With a row-reduction hook (``reduce``) the lanes' measurement rows are
 sharded over processes (:mod:`..parallel.sharded_pair`): A, b, Y and the
@@ -39,7 +40,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..utils import profiling
-from .cplx import Pair, add, conj, matmul, sub, transpose
+from .cplx import Pair, conj, matmul, transpose
 
 #: trips between host reads of the lanes' converged masks
 CHECK_EVERY = 8
@@ -83,7 +84,9 @@ def where(mask, new, old):
                        new, old)
 
 
-class _State(NamedTuple):
+class LoopState(NamedTuple):
+    """The state of every lane of the loop, (G, P, ...) each."""
+
     y: Pair
     z: Pair
     m_dual: Pair
@@ -111,6 +114,9 @@ ZProx = Optional[Callable]
 #: return it; ``trips`` counts the loop trips run with it
 #: (:class:`..parallel.mesh.RowReduce`); None for a solve on one shard
 RowHook = Optional[object]
+#: ``trip(state, loop, bound) -> state``: one trip of every lane, lanes at
+#: ``bound`` or converged frozen (:mod:`.kernels.admm_trip`)
+Trip = Callable
 
 
 def any_active(active: torch.Tensor, reduce: RowHook) -> bool:
@@ -141,10 +147,60 @@ def _contiguous(p: Pair) -> Pair:
     return Pair(p.re.contiguous(), p.im.contiguous())
 
 
+class Loop:
+    """What every trip of one loop shares: its operands and kernels, the
+    constants of its tests, and scratch a trip may keep (``work``, made at
+    its first trip)."""
+
+    def __init__(self, a_t: Pair, a_conj: Pair, u_conj: Pair, b_lanes, *,
+                 pair_gemm, prox_dual, z_prox, anchor: Optional[Pair],
+                 reduce, scale_by_row: bool, rho: float, tol_rel: float,
+                 tol_abs: float, m: int, n: int, r: int, m_thr: int):
+        self.a_t, self.a_conj, self.u_conj = a_t, a_conj, u_conj
+        self.b_lanes = b_lanes
+        self.pair_gemm, self.prox_dual, self.z_prox = (pair_gemm, prox_dual,
+                                                       z_prox)
+        self.anchor, self.reduce = anchor, reduce
+        self.scale_by_row, self.rho = scale_by_row, rho
+        self.tol_rel, self.tol_abs = tol_rel, tol_abs
+        self.m, self.n, self.r, self.m_thr = m, n, r, m_thr
+        self.has_z = z_prox is not None
+        self.work = None
+
+    def a_mul(self, x):
+        return gemm(x, self.a_t, self.pair_gemm)
+
+    def ah_mul(self, yy):
+        return gemm(yy, self.a_conj, self.pair_gemm)
+
+    def ah_sum(self, yy):
+        """A^H Y summed over the row shards: all-reduce (a)."""
+        part = self.ah_mul(yy)
+        if self.reduce is None:
+            return part
+        buf = self.reduce.sum_(torch.stack([part.re, part.im]))
+        return Pair(buf[0], buf[1])
+
+    def test_constants(self):
+        """(tol_rel, rho, and the constant terms tol_abs * sqrt(...) of the
+        primal, dual and combined thresholds), as the plain version forms
+        them."""
+        m, n, r, mt = self.m, self.n, self.r, self.m_thr
+        ta = self.tol_abs
+        if self.has_z:
+            consts = (ta * math.sqrt((mt + n) * r), ta * math.sqrt(n * r * 2),
+                      ta * math.sqrt((mt + n) * r * 2))
+        else:
+            consts = (ta * math.sqrt(m * r), ta * math.sqrt(n * r),
+                      ta * math.sqrt(m * r * 2))
+        return (self.tol_rel, self.rho, *consts)
+
+
 def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
               mu0, *, scale_by_row: bool, pair_gemm: PairGemm,
-              prox_dual: ProxDual, z_prox: ZProx, rho: float, tol_rel: float,
-              tol_abs: float, maxiter: int, warm_iters: int = 0,
+              prox_dual: ProxDual, z_prox: ZProx, trip: Trip, rho: float,
+              tol_rel: float, tol_abs: float, maxiter: int,
+              warm_iters: int = 0,
               anchor: Optional[Pair] = None, reduce: RowHook = None,
               m_eff: Optional[int] = None, path: str = "per-op",
               zprox: str = "k2"):
@@ -164,11 +220,12 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
     the residual thresholds (default: this shard's m); not with the
     Z-free loop, whose X-update solves over the rows.
 
-    Each trip: X-update against conj(U), magnitude prox with the M-dual
-    update, Z-prox, N-dual update, best-so-far tracking, the three
-    residual tests and the mu update.  The trip's three products (A^H Y,
-    the X-update, A X) go through ``pair_gemm``, whose B operands
-    (A^T, conj(A), conj(U)) are made contiguous once per solve.  With
+    Each trip, run by ``trip``: X-update against conj(U), magnitude prox
+    with the M-dual update, Z-prox, N-dual update, best-so-far tracking,
+    the three residual tests and the mu update, then the freeze of the
+    lanes that were not active.  The trip's three products (A^H Y, the
+    X-update, A X) go through ``pair_gemm``, whose B operands (A^T,
+    conj(A), conj(U)) are made contiguous once per solve.  With
     ``warm_iters > 0``, after the first ``min(warm_iters, maxiter)`` trips
     ``converged`` and the best-so-far objective are reset for every lane
     and the tail continues from the carried state (ref :571-578); every
@@ -194,20 +251,10 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
     u_conj = _contiguous(conj(u_mat))                           # U^T
     b_lanes = b.reshape(n_lanes, m)
     dev, f32 = y.re.device, torch.float32
-
-    def a_mul(x):
-        return gemm(x, a_t, pair_gemm)
-
-    def ah_mul(yy):
-        return gemm(yy, a_conj, pair_gemm)
-
-    def ah_sum(yy):
-        """A^H Y summed over the row shards: all-reduce (a)."""
-        part = ah_mul(yy)
-        if reduce is None:
-            return part
-        buf = reduce.sum_(torch.stack([part.re, part.im]))
-        return Pair(buf[0], buf[1])
+    loop = Loop(a_t, a_conj, u_conj, b_lanes, pair_gemm=pair_gemm,
+                prox_dual=prox_dual, z_prox=z_prox, anchor=anchor,
+                reduce=reduce, scale_by_row=scale_by_row, rho=rho,
+                tol_rel=tol_rel, tol_abs=tol_abs, m=m, n=n, r=r, m_thr=m_thr)
 
     def zeros(*shape):
         return Pair(torch.zeros(shape, dtype=f32, device=dev),
@@ -217,131 +264,28 @@ def admm_loop(a: Pair, b, u_mat: Pair, y: Pair, z: Pair, v_basis: Pair,
         return torch.full((g_, p_), val, dtype=dtype, device=dev)
 
     k_opt = r if scale_by_row else 1
-    state = _State(
+    state = LoopState(
         y=y, z=z, m_dual=zeros(g_, p_, r, m), n_dual=zeros(g_, p_, r, n),
-        aty=ah_sum(y), v_basis=v_basis, mu=mu0,
+        aty=loop.ah_sum(y), v_basis=v_basis, mu=mu0,
         last_res=full(math.inf), opt_obj=full(math.inf),
-        opt_x=zeros(g_, p_, k_opt, n), opt_y=zeros(g_, p_, k_opt, m),
+        opt_x=zeros(g_, p_, k_opt, a.re.shape[-1]),
+        opt_y=zeros(g_, p_, k_opt, m),
         it=full(0, torch.int32), converged=full(False, torch.bool))
-
-    def body(c: _State) -> _State:
-        mu = c.mu
-        mu4 = mu[..., None, None]
-        inv4 = 1.0 / mu4
-        # X-update (ref :401-409); the anchor's pull joins the rhs
-        t = Pair(c.y.re - c.m_dual.re * inv4, c.y.im - c.m_dual.im * inv4)
-        if has_z:
-            rhs = add(ah_sum(t), Pair(c.z.re - c.n_dual.re * inv4,
-                                      c.z.im - c.n_dual.im * inv4))
-            if anchor is not None:
-                rhs = add(rhs, anchor)
-        else:
-            rhs = t                                    # U = pinv(A)^H
-        x = gemm(rhs, u_conj, pair_gemm)
-        ax = a_mul(x)
-        # Y-update fused with the M-dual update (ref :511-533, :336-337)
-        yn, m_dual = prox_dual(lanes(ax), b_lanes, lanes(c.m_dual),
-                               mu.reshape(n_lanes), not scale_by_row)
-        yn, m_dual = groups(yn, g_), groups(m_dual, g_)
-        aty = ah_mul(yn)
-        j_m = sub(ax, yn)
-        # the objective's residuals over the rows (ref :343-361)
-        if scale_by_row:
-            amp = torch.sqrt(torch.clamp(
-                torch.sum(ax.re ** 2 + ax.im ** 2, dim=-2), min=0.0))
-            res = amp - b                                       # (G, P, m)
-        else:
-            amp = torch.sqrt(torch.clamp(ax.re ** 2 + ax.im ** 2, min=0.0))
-            res = amp - b[..., None, :]                         # (G, P, r, m)
-        if reduce is None:
-            obj_all = torch.linalg.vector_norm(res, dim=-1)
-            nax2, ny2, njm2, ndy2 = (fro2(ax), fro2(yn), fro2(j_m),
-                                     fro2(sub(yn, c.y)))
-        else:
-            aty, obj_all, (nax2, ny2, njm2, ndy2) = fused_row_sums(
-                reduce, aty, torch.sum(res * res, dim=-1),
-                [fro2(p) for p in (ax, yn, j_m, sub(yn, c.y))])
-            aty = Pair(*aty)
-        if has_z:
-            # Z-update (ref :423-485)
-            z_in = Pair(x.re + c.n_dual.re * inv4, x.im + c.n_dual.im * inv4)
-            zn, v_new = z_prox(lanes(z_in), lanes(c.v_basis),
-                               mu.reshape(n_lanes))
-            zn, v_new = groups(zn, g_), groups(v_new, g_)
-            # N-dual update (ref :336-341)
-            j_n = sub(x, zn)
-            n_dual = Pair(c.n_dual.re + mu4 * j_n.re,
-                          c.n_dual.im + mu4 * j_n.im)
-        else:
-            zn, v_new, n_dual = c.z, c.v_basis, c.n_dual
-
-        # best-so-far (ref :343-361)
-        if scale_by_row:
-            obj = obj_all                                       # (G, P)
-            x_best, y_best = x, yn
-        else:
-            objs = obj_all
-            j = torch.argmin(objs, dim=-1, keepdim=True)      # first on ties
-            obj = torch.gather(objs, -1, j)[..., 0]
-
-            def pick(p: Pair) -> Pair:
-                idx = j[..., None].expand(g_, p_, 1, p.re.shape[-1])
-                return Pair(torch.gather(p.re, 2, idx),
-                            torch.gather(p.im, 2, idx))
-
-            x_best, y_best = pick(x), pick(yn)
-        better = obj < c.opt_obj
-        opt_x = where(better, x_best, c.opt_x)
-        opt_y = where(better, y_best, c.opt_y)
-        opt_obj = torch.minimum(obj, c.opt_obj)
-
-        # convergence tests (ref :363-375); the row sums are global
-        nax, ny, naty = torch.sqrt(nax2), torch.sqrt(ny2), norm(aty)
-        if has_z:
-            nx, nz = norm(x), norm(zn)
-            res_prim = torch.sqrt(njm2 + fro2(j_n))
-            dz2 = fro2(sub(zn, c.z))
-            res_dual = mu * torch.sqrt(fro2(sub(aty, c.aty)) + dz2)
-            res_comb = torch.sqrt(res_prim ** 2 + ndy2 + dz2)
-            big = torch.maximum(nax, ny) ** 2 + torch.maximum(nx, nz) ** 2
-            t_prim = (tol_abs * math.sqrt((m_thr + n) * r)
-                      + tol_rel * torch.sqrt(big))
-            t_dual = (tol_abs * math.sqrt(n * r * 2)
-                      + tol_rel * torch.sqrt(naty ** 2 + nz ** 2))
-            t_comb = (tol_abs * math.sqrt((m_thr + n) * r * 2)
-                      + tol_rel * torch.sqrt(big + ny ** 2 + nz ** 2))
-        else:
-            res_prim = torch.sqrt(njm2)
-            res_dual = mu * norm(sub(aty, c.aty))
-            res_comb = torch.sqrt(res_prim ** 2 + ndy2)
-            big = torch.maximum(nax, ny)
-            t_prim = tol_abs * math.sqrt(m * r) + tol_rel * big
-            t_dual = tol_abs * math.sqrt(n * r) + tol_rel * naty
-            t_comb = (tol_abs * math.sqrt(m * r * 2)
-                      + tol_rel * torch.sqrt(big ** 2 + ny ** 2))
-        converged = (((res_prim < t_prim) & (res_dual < t_dual))
-                     | (res_comb < t_comb))
-        mu = torch.where(res_comb > c.last_res * 0.9, mu * rho, mu)
-        return _State(y=yn, z=zn, m_dual=m_dual, n_dual=n_dual, aty=aty,
-                      v_basis=v_new, mu=mu, last_res=res_comb,
-                      opt_obj=opt_obj, opt_x=opt_x, opt_y=opt_y,
-                      it=c.it + 1, converged=converged)
 
     trips = 0
 
-    def run(c: _State, bound: int) -> _State:
+    def run(c: LoopState, bound: int) -> LoopState:
         nonlocal trips
-        for trip in range(bound):
-            active = (c.it < bound) & ~c.converged
-            if trip % CHECK_EVERY == 0:
+        for k in range(bound):
+            if k % CHECK_EVERY == 0:
+                active = (c.it < bound) & ~c.converged
                 with profiling.span("inner.check"):
                     go = any_active(active, reduce)
                 if not go:
                     break
             if reduce is not None:
                 reduce.trips += 1
-            new = body(c)
-            c = _State(*(where(active, nv, ov) for nv, ov in zip(new, c)))
+            c = trip(c, loop, bound)
             trips += 1
         return c
 

@@ -16,6 +16,9 @@ PyTorch version.  Port of ``twoace_tpu.ops.pallas.kernels``:
   chain of batched complex n x n products of
   ``scripts/bench_pallas_mm.py`` (run by
   ``scripts/torch_bench_pallas_mm.py``).
+- the passes of K7 (``csrc/admm_trip.cu``, :mod:`.admm_trip`): the per-op
+  loop's trip glue around K4, K1 and K2 (``trip_shift``, ``trip_rhs``,
+  ``trip_rows``, ``trip_n_dual``, ``trip_commit``).
 
 Each wrapper counts its launches in a plain integer attribute
 ``.launches``; a CPU tensor takes the plain version and counts nothing.
@@ -27,9 +30,10 @@ from .pair_matmul import pair_matmul, pair_matmul_plain  # noqa: F401
 from .infer_admm import fused_infer_admm, infer_admm_plain  # noqa: F401
 from .prox_dual_rows import fused_prox_dual, prox_dual_rows_plain  # noqa: F401
 from .chain_mm import pair_chain_mm, pair_chain_mm_plain  # noqa: F401
+from .admm_trip import PASSES as _K7
 
 KERNELS = (fused_prox_dual_t, fused_zprox_t, fused_infer_admm, pair_matmul,
-           fused_prox_dual, pair_chain_mm)
+           fused_prox_dual, pair_chain_mm, *_K7)
 
 
 def reset_launch_counts() -> None:

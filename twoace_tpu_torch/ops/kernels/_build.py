@@ -47,6 +47,11 @@ SIGNATURES = {
     "twoace_prox_dual_rows": [_P] * 6 + [_L, _I, _I, _I, _P],
     "twoace_prox_dual_rows_plan": [_L, _I, _I, _P],
     "twoace_chain_mm": [_P] * 6 + [_I, _I, _I, _P],
+    "twoace_trip_shift": [_P] * 7 + [_I, _L, _I, _F, _P],
+    "twoace_trip_rhs": [_P] * 11 + [_I, _L, _I, _P],
+    "twoace_trip_rows": [_P] * 8 + [_I] * 5 + [_P],
+    "twoace_trip_n_dual": [_P] * 18 + [_I, _L, _I, _I, _P],
+    "twoace_trip_commit": [_P] * 8 + [_I] + [_P] * 12 + [_I] * 10 + [_P],
 }
 
 _lib = None

@@ -5,10 +5,11 @@ Port of ``twoace_tpu.ops.pallas.solver_kernel.fused_infer_admm``, with a
 lane axis: ``a`` (G, m, n) and ``u`` (G, n, n) per group, ``b`` and the
 state (G, P, ...) per lane, and the ladder as per-lane runtime tensors.
 A CPU tensor takes the plain version :func:`infer_admm_plain`, which runs
-the shared loop body (:func:`..admm_loop.admm_loop`) with K4's, K1's and
-K2's plain versions; a CUDA tensor launches the kernel or raises.  Each
-launch leaves one lane-trip record (path "k3"), the plain version one of
-path "k3-plain" (:mod:`...utils.profiling`), while a profiler is open.
+the shared loop body (:func:`..admm_loop.admm_loop`) with K4's, K1's,
+K2's and K7's plain versions; a CUDA tensor launches the kernel or
+raises.  Each launch leaves one lane-trip record (path "k3"), the plain
+version one of path "k3-plain" (:mod:`...utils.profiling`), while a
+profiler is open.
 
 On CUDA the kernel computes its four complex products in 3xTF32 on the
 tensor cores against constants split once per launch (the counterpart
@@ -25,6 +26,7 @@ from ...utils import profiling
 from ..admm_loop import admm_loop
 from ..cplx import LadderArrays, Pair
 from . import _build
+from .admm_trip import trip_plain
 from .pair_matmul import pair_matmul_plain
 from .prox_dual import prox_dual_t_plain
 from .zprox import MAX_NR, zprox_t_plain
@@ -86,17 +88,17 @@ def infer_admm_plain(a: Pair, b, u: Pair, y0: Pair, z0: Pair, v0: Pair, mu0,
                      scale_by_row: bool, rho: float, tol_rel: float,
                      tol_abs: float, maxiter: int):
     """Plain PyTorch version of :func:`fused_infer_admm`: the same
-    function of the same prepared inputs, through K4's, K1's and K2's
-    plain versions."""
+    function of the same prepared inputs, through K4's, K1's, K2's and
+    K7's plain versions."""
 
     def z_prox(z, v, mu):
         return zprox_t_plain(z, v, nt, nr, ladder)
 
     return admm_loop(a, b, u, y0, z0, v0, mu0, scale_by_row=scale_by_row,
                      pair_gemm=pair_matmul_plain,
-                     prox_dual=prox_dual_t_plain, z_prox=z_prox, rho=rho,
-                     tol_rel=tol_rel, tol_abs=tol_abs, maxiter=maxiter,
-                     path="k3-plain")
+                     prox_dual=prox_dual_t_plain, z_prox=z_prox,
+                     trip=trip_plain, rho=rho, tol_rel=tol_rel,
+                     tol_abs=tol_abs, maxiter=maxiter, path="k3-plain")
 
 
 def _check(a: Pair, b, u: Pair, y0: Pair, z0: Pair, v0: Pair, mu0,

@@ -56,6 +56,7 @@ from .cplx import (LadderArrays, Pair, from_complex, magnitude_prox_cols_elem,
                    scale, to_complex, transpose)
 from .kernels import (fused_infer_admm, fused_prox_dual_t, fused_zprox_t,
                       pair_matmul, zprox_t_plain)
+from .kernels.admm_trip import admm_trip
 from .prox import profile_ladder_arrays
 
 __all__ = [
@@ -410,7 +411,8 @@ def infer_admm_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool,
     with span("inner.solve"):
         return admm_loop(
             a, b, u_mat, y, z, v_basis, mu, pair_gemm=pair_matmul,
-            prox_dual=fused_prox_dual_t, z_prox=z_prox, warm_iters=warm_iters,
+            prox_dual=fused_prox_dual_t, z_prox=z_prox, trip=admm_trip,
+            warm_iters=warm_iters,
             anchor=scale(anchor, anchor_weight) if anchored else None,
             zprox="nuclear" if prox_kind == "nuclear" else "k2", **kw)
 
