@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """A/B timing of one of chip_smoke.py's cells between two checkouts on one
-GPU: phase 3's batch solve, phase 4's two-path single solve, phase 6's
-profiled complex solve, a phase 5 warm tracker's windows, or phase 2's K2,
-K3, K5 or K6 alone.
+GPU: phase 6's profiled complex solve, a phase 5 warm tracker's windows,
+or phase 2's K2, K3, K5 or K6 alone.  The A2 entries' cells are
+``port_bench``'s (``python3 port_bench/run.py --workload <cell> --seed <n>
+--seconds 15 --trace 0`` in each checkout).
 
     python3 scripts/torch_batch_ab.py BASE_DIR
-        [--cell batch|single|campaign|warm|warm_fresh|k2|k3|k5|k6]
+        [--cell k2|k3|k5|k6|campaign|warm|warm_fresh]
         [--pairs 10]
         [--profile-head]
 
@@ -13,23 +14,6 @@ Starts one worker process in the checkout that holds this script (head)
 and then one in BASE_DIR (base).  Each imports its own tree's
 ``twoace_tpu_torch`` and sets up the cell:
 
-- ``batch`` (the default): ``chip_smoke.build_solve_problem`` (the
-  bench.py solve workload: seed 1, 64 two-path 16x16 channels,
-  m = 1024), solved once to warm up at phase 3's config (maxiter 500,
-  warm_iters 80, pass caps 120/160, split generator seed 0).  A run is
-  one ``solve_lowrank_multi_pair_batch`` between CUDA events; it fails
-  unless it meets phase 3's bars (median NMSE <= -60 dB, min quality
-  >= 0.98).  Each worker also reports K2's max |difference| from its
-  plain version on one seeded input of phase 2's kind (``k2_error``), to
-  set beside chip_smoke.py's K2_ATOL.
-- ``single``: phase 4's two-path single solve
-  (``chip_smoke.single_workload``: bench.py's seed-3 codebook, 16x16,
-  m = 1024, a two-path channel) at the cold ``AdmmConfig(maxiter=500)``,
-  solved once to warm up.  A run is ten ``solve_lowrank_multi_pair``
-  calls (generator seeds 1 ... 10) one after another, each on the host
-  clock ending in ``torch.cuda.synchronize()``; it reports their median
-  ms and solves/s (1000 over the median) and fails unless it meets
-  phase 4's bars (median NMSE <= -60 dB, min quality >= 0.98).
 - ``warm`` / ``warm_fresh``: phase 5's warm rank-1 tracker
   (``make_warm_pair_solver(use_rank_one=True)``, maxiter 500) on the
   sector stream with max_window 80, or on the fresh-pair stream with
@@ -41,12 +25,12 @@ and then one in BASE_DIR (base).  Each imports its own tree's
   recorded previous estimate, on the host clock (each window ends in
   the estimate's copy to the host), and reports windows/s and each
   window's ms.
-- ``k2``: K2 alone at the batch solve's shape (192 lanes, r 20, 16x16)
-  and the warm trackers' (1 lane, r 1), on phase 2's kind of input drawn
-  from one seed (``k2_inputs``); a run reads each shape's device time a
-  launch from the profiler (``chip_smoke.device_ms``), back to back and
-  with each launch after 41 small kernels, as a tracker's trip runs
-  them (K2's own events only).
+- ``k2`` (the default): K2 alone at the batch solve's shape (192
+  lanes, r 20, 16x16) and the warm trackers' (1 lane, r 1), on phase 2's
+  kind of input drawn from one seed (``k2_inputs``); a run reads each
+  shape's device time a launch from the profiler
+  (``chip_smoke.device_ms``), back to back and with each launch after 41
+  small kernels, as a tracker's trip runs them (K2's own events only).
 - ``k3``: K3 alone on ``chip_smoke.k3_cases`` at m 972, 1024, 80 and 3,
   both passes; a run takes each case's CUDA-event ms a launch (5
   launches).  K3 has its own cell: after a K3 launch the profiler's reads
@@ -99,65 +83,6 @@ import numpy as np
 HEAD_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: the windows a tracker run replays
 TRACK_WINDOWS = range(2, 40, 4)
-
-
-def batch_cell():
-    """The batch solve, warmed up; returns its timed run."""
-    import torch
-
-    import chip_smoke as cs
-    from twoace_tpu_torch import interop
-    from twoace_tpu_torch.config import AdmmConfig
-    from twoace_tpu_torch.ops.pair_solver import solve_lowrank_multi_pair_batch
-    from twoace_tpu_torch.utils.metrics import nmse_h_projection
-
-    a, b, x_true = cs.build_solve_problem()
-    ap = interop.pair_from_numpy(a, None, device="cuda")
-    bt = torch.as_tensor(b, dtype=torch.float32, device="cuda")
-    cfg = AdmmConfig(maxiter=500, warm_iters=80, stage1_maxiter=120,
-                     stage2_maxiter=160)
-
-    def solve():
-        return solve_lowrank_multi_pair_batch(
-            torch.Generator().manual_seed(0), ap, bt, cs.NT, cs.NR, cfg)
-
-    solve()
-    torch.cuda.synchronize()
-
-    def run():
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        res = solve()
-        stop.record()
-        torch.cuda.synchronize()
-        secs = start.elapsed_time(stop) / 1e3
-        x = (res.x.re.double() + 1j * res.x.im.double()).cpu()
-        db = 10 * torch.log10(torch.clamp(
-            nmse_h_projection(x, torch.as_tensor(x_true)), min=1e-30))
-        out = dict(secs=secs, rate=b.shape[0] / secs,
-                   iters=int(res.iters.sum()), nmse_db=float(db.median()),
-                   qmin=float(res.quality.min()))
-        if out["nmse_db"] > -60.0 or out["qmin"] < 0.98:
-            raise RuntimeError(f"missed phase 3's bars: {out}")
-        return out
-
-    return run
-
-
-def k2_error():
-    """K2's max |difference| from its plain version on inputs of phase 2's
-    kind at the batch shape (``k2_inputs``), drawn from one seed, so both
-    checkouts see the same inputs."""
-    import chip_smoke as cs
-    from twoace_tpu_torch.ops.kernels import fused_zprox_t
-    from twoace_tpu_torch.ops.kernels.zprox import zprox_t_plain
-
-    z, v0, lad = k2_inputs(cs.LANES, cs.R, cs.NT, cs.NR)
-    got = fused_zprox_t(z, v0, cs.NT, cs.NR, lad)
-    want = zprox_t_plain(z, v0, cs.NT, cs.NR, lad)
-    return max(float((g - w).abs().max()) for gp, wp in zip(got, want)
-               for g, w in zip(gp, wp))
 
 
 #: the k2 cell's shapes (lanes, r, nt, nr) and the k3 cell's m
@@ -344,51 +269,6 @@ def campaign_cell():
     return run
 
 
-def single_cell():
-    """Phase 4's two-path single solve, warmed up; returns its timed run."""
-    import torch
-
-    import chip_smoke as cs
-    from twoace_tpu_torch import interop
-    from twoace_tpu_torch.config import AdmmConfig
-    from twoace_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-    from twoace_tpu_torch.ops.pair_solver import solve_lowrank_multi_pair
-
-    a, workloads = cs.single_workload()
-    x_true = workloads["two-path x"]
-    ap = interop.pair_from_numpy(a, None, device="cuda")
-    bt = torch.as_tensor(np.abs(a @ x_true), dtype=torch.float32,
-                         device="cuda")
-    cfg = AdmmConfig(maxiter=500)
-
-    def solve(i):
-        return solve_lowrank_multi_pair(torch.Generator().manual_seed(i),
-                                        ap, bt, cs.NT, cs.NR, cfg)
-
-    solve(0)
-    torch.cuda.synchronize()
-
-    def run():
-        reset_launch_counts()
-        ms, nmse, qual = [], [], []
-        for i in range(1, cs.SINGLE_REPS + 1):
-            t0 = time.perf_counter()
-            res = solve(i)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            nmse.append(cs.nmse_db(res.x, x_true))
-            qual.append(float(res.quality))
-        med = float(np.median(ms))
-        out = dict(secs=sum(ms) / 1e3, rate=1e3 / med, median_ms=med,
-                   ms=ms, nmse_db=float(np.median(nmse)), qmin=min(qual),
-                   launches=launch_counts())
-        if out["nmse_db"] > -60.0 or out["qmin"] < 0.98:
-            raise RuntimeError(f"missed phase 4's bars: {out}")
-        return out
-
-    return run
-
-
 def tracker_cell(cell, record_path):
     """A warm tracker's recorded windows (recorded here first if
     ``record_path`` does not exist yet), warmed up; returns its timed
@@ -458,15 +338,10 @@ def worker(cell, record_path, profile_first):
         x = torch.ones(1024, device="cuda")
         print(f"profiled: {cs.device_ms(lambda: x * 2.0)} ms a launch",
               flush=True)
-    run = (batch_cell() if cell == "batch" else single_cell()
-           if cell == "single" else campaign_cell()
-           if cell == "campaign" else kernel_cell(cell)
+    run = (campaign_cell() if cell == "campaign" else kernel_cell(cell)
            if cell in ("k2", "k3", "k5", "k6")
            else tracker_cell(cell, record_path))
-    ready = {"ready": True}
-    if cell == "batch":
-        ready["k2_max_abs_err"] = k2_error()
-    print("AB " + json.dumps(ready), flush=True)
+    print("AB " + json.dumps({"ready": True}), flush=True)
     for _ in sys.stdin:
         print("AB " + json.dumps(run()), flush=True)
 
@@ -491,15 +366,6 @@ def describe(r, unit):
     if unit == "1/ms":
         return " | ".join(f"{k} {'not measured' if v is None else f'{v:.6f}'}"
                           f" ms" for k, v in r["ms"].items())
-    if unit == "solves/s":
-        return (f"median {r['median_ms']:.2f} ms a solve | {r['rate']:.4f} "
-                f"solves/s | ms {[round(x, 2) for x in r['ms']]} | median "
-                f"NMSE {r['nmse_db']:.2f} dB | min quality {r['qmin']:.6f} | "
-                f"launches {r['launches']}")
-    if unit == "rec/s":
-        return (f"{r['secs']:.4f} s | {r['rate']:.2f} rec/s | {r['iters']} "
-                f"iters | median NMSE {r['nmse_db']:.2f} dB | min quality "
-                f"{r['qmin']:.6f}")
     return (f"{r['secs']:.4f} s | {r['rate']:.4f} windows/s | window ms "
             f"{[round(x, 2) for x in r['window_ms']]} | launches "
             f"{r['launches']}")
@@ -508,9 +374,9 @@ def describe(r, unit):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("base_dir")
-    ap.add_argument("--cell", choices=("batch", "single", "campaign", "warm",
-                                       "warm_fresh", "k2", "k3", "k5", "k6"),
-                    default="batch")
+    ap.add_argument("--cell", choices=("k2", "k3", "k5", "k6", "campaign",
+                                       "warm", "warm_fresh"),
+                    default="k2")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--profile-head", action="store_true")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
@@ -519,8 +385,7 @@ def main():
     if args.worker:
         return worker(args.cell, args.record, args.profile_head)
 
-    unit = {"batch": "rec/s", "single": "solves/s", "campaign": "1/s",
-            "k2": "1/ms", "k3": "1/ms", "k5": "1/ms",
+    unit = {"campaign": "1/s", "k2": "1/ms", "k3": "1/ms", "k5": "1/ms",
             "k6": "1/ms"}.get(args.cell, "windows/s")
     tmp = tempfile.TemporaryDirectory()
     record = os.path.join(tmp.name, "windows.pkl")
@@ -528,7 +393,6 @@ def main():
     procs = {}
     try:
         # head first: for a tracker it records the windows both replay
-        ready = {}
         for name, d in dirs.items():
             procs[name] = subprocess.Popen(
                 [sys.executable, "-u", os.path.abspath(__file__), d,
@@ -537,7 +401,7 @@ def main():
                    else []),
                 cwd=d, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
                 text=True)
-            ready[name] = read(procs[name], name)
+            read(procs[name], name)
         runs = {"base": [], "head": []}
         for i in range(args.pairs):
             for name in (("base", "head") if i % 2 == 0 else ("head", "base")):
@@ -556,18 +420,7 @@ def main():
     summary = {"cell": args.cell, "unit": unit}
     for name, rs in runs.items():
         summary[name] = dict(rate=quartiles([r["rate"] for r in rs]))
-        if "k2_max_abs_err" in ready[name]:
-            summary[name]["k2_max_abs_err"] = ready[name]["k2_max_abs_err"]
-        if unit == "solves/s":
-            summary[name].update(
-                median_ms=quartiles([r["median_ms"] for r in rs]),
-                nmse_db_median=float(np.median([r["nmse_db"] for r in rs])),
-                launches=rs[-1]["launches"])
-        elif unit == "rec/s":
-            summary[name].update(
-                nmse_db_median=float(np.median([r["nmse_db"] for r in rs])),
-                iters=sorted({r["iters"] for r in rs}))
-        elif unit == "1/s":
+        if unit == "1/s":
             summary[name].update({k: quartiles([r[k] for r in rs]) for k in (
                 "wall_ms", "busy_ms", "busy_share", "ms_a_trip")})
             summary[name].update(trips=sorted({r["trips"] for r in rs}),
@@ -581,11 +434,6 @@ def main():
     summary["head_over_base"] = dict(**quartiles(ratio),
                                      head_wins=sum(x > 1.0 for x in ratio),
                                      pairs=len(ratio))
-    if unit == "solves/s":
-        # the median solve's ms, head over base: below 1 where head is faster
-        summary["latency_head_over_base"] = quartiles(
-            [h["median_ms"] / b["median_ms"]
-             for b, h in zip(runs["base"], runs["head"])])
     if unit == "1/ms":
         # each case's ms, base over head: above 1 where head is faster
         summary["ms_base_over_head"] = {

@@ -186,7 +186,8 @@ def test_batch_solver_matches_jax_given_its_splits_and_init(name):
         fp = tps._batch_first_pass(
             tpair(a), torch.tensor(b), trains, tests, lad, nt, nr, cfg, m_act,
             None, tps.Pair(xs.re.transpose(0, 1).contiguous(),
-                           xs.im.transpose(0, 1).contiguous()))
+                           xs.im.transpose(0, 1).contiguous()),
+            fused_loop=False)
     q_t = fp.q.numpy().T                                      # (B, R)
     np.testing.assert_array_equal(q_t < cfg.quality_threshold,
                                   q_j < jcfg.quality_threshold)

@@ -158,22 +158,23 @@ def test_nuclear_inner_solve_matches_jax():
     np.testing.assert_allclose(pt, pj, atol=1e-4 * np.abs(pj).max())
 
 
-def test_nuclear_single_and_batch_paths_agree():
-    """prox_kind="nuclear" end to end, with no retry, in both entry
-    points on the same draws (JAX's): a batch of one runs the single
-    solve's lanes, so the two land on the same recovery (-60 dB between
-    them), quality and trip count.  The nuclear inner solve itself is held
-    to JAX's above."""
+@pytest.mark.parametrize("prox_kind", ["nuclear", "spectral_profile"])
+def test_single_and_batch_of_one_agree(prox_kind):
+    """Both entry points end to end on the same draws (JAX's): a batch of
+    one runs the single solve's scaffold, the single on K3's route (its
+    plain version on the CPU) and the batch on the per-op loop, so the two
+    land on the same recovery (-60 dB between them), quality and trip
+    count.  The nuclear inner solve itself is held to JAX's above."""
     a, b, x_true, _ = _refine_problem()
     cfg = tps.AdmmConfig(maxiter=100, n_restarts=2)
     splits, xs = jax_single_draws(jax.random.PRNGKey(5), a, b, JConfig(
         maxiter=100, n_restarts=2))
     res_s = tps.solve_lowrank_multi_pair(
-        None, tpair(a), torch.tensor(b), NT, NR, cfg, prox_kind="nuclear",
+        None, tpair(a), torch.tensor(b), NT, NR, cfg, prox_kind=prox_kind,
         splits=splits, xs=tpair(*xs))
     res_b = tps.solve_lowrank_multi_pair_batch(
         None, tpair(a), torch.tensor(b[None]), NT, NR, cfg,
-        prox_kind="nuclear", splits=splits,
+        prox_kind=prox_kind, splits=splits,
         xs=tpair(*(p[None] for p in xs)))
     xs_ = res_s.x.re.numpy() + 1j * res_s.x.im.numpy()
     xb = res_b.x.re[0].numpy() + 1j * res_b.x.im[0].numpy()

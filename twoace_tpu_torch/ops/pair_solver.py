@@ -2,10 +2,10 @@
 
 Port of ``twoace_tpu.ops.pair_solver``: the ``inferLowRankV4_multi``
 scaffold (ref: main/src/my_recovery_algorithms/ADMM_v2/
-inferLowRankV4_multi.m:5-109) for one recovery
-(:func:`solve_lowrank_multi_pair`), its warm-started refine
-(:func:`refine_lowrank_pair`), and a batch of channels measured through
-one shared codebook (:func:`solve_lowrank_multi_pair_batch`).
+inferLowRankV4_multi.m:5-109) for a batch of channels measured through
+one shared codebook (:func:`solve_lowrank_multi_pair_batch`) and for one
+recovery (:func:`solve_lowrank_multi_pair`, the same scaffold at a batch
+of one), and its warm-started refine (:func:`refine_lowrank_pair`).
 
 Where JAX vmaps a ``lax.while_loop``, the port runs one loop over a lane
 axis.  A lane is one (instance, restart) pair.  State tensors are laid out
@@ -51,7 +51,8 @@ import torch
 
 from ..config import AdmmConfig
 from ..utils.profiling import span
-from .admm_loop import RowHook, admm_loop, gemm, groups, lanes, norm, where
+from .admm_loop import (RowHook, _contiguous, admm_loop, gemm, groups, lanes,
+                        norm, where)
 from .cplx import (LadderArrays, Pair, from_complex, magnitude_prox_cols_elem,
                    scale, to_complex, transpose)
 from .kernels import (fused_infer_admm, fused_prox_dual_t, fused_zprox_t,
@@ -264,10 +265,6 @@ def _lane_ladder(ladder: LadderArrays, g_: int, p_: int) -> LadderArrays:
         .contiguous(),
         ladder.fracs.expand(g_, p_, levels).reshape(g_ * p_, levels)
         .contiguous())
-
-
-def _contiguous(p: Pair) -> Pair:
-    return Pair(p.re.contiguous(), p.im.contiguous())
 
 
 def admm_init_pair(a: Pair, b, x0: Pair, *, scale_by_row: bool, nt: int,
@@ -519,13 +516,15 @@ def _batch_first_pass(a: Pair, b_batch, trains, tests,
                       cfg: AdmmConfig, m_eff: int,
                       generator: Optional[torch.Generator],
                       xs: Optional[Pair] = None,
-                      prox_kind: str = "spectral_profile") -> _FirstPass:
+                      prox_kind: str = "spectral_profile", *,
+                      fused_loop: bool) -> _FirstPass:
     """Stage 1: normalize, then every (restart, instance) first-pass solve
     (ref: inferLowRankV4_multi.m:27-68).  Lanes are restart-major: group
     R shares its train split's codebook rows and U = inv(A^H A + I).
 
-    ``xs``: optional spectral init (R, B, r, n), which lets a test run the
-    port on exactly the JAX package's inputs.
+    ``m_eff``: see :func:`_normalize_problem_pair`.  ``xs``: optional
+    spectral init (R, B, r, n), which lets a test run the port on exactly
+    the JAX package's inputs.  ``fused_loop``: see :func:`infer_admm_pair`.
     """
     with span("stage.first_pass"):
         n = a.re.shape[-1]
@@ -539,13 +538,14 @@ def _batch_first_pass(a: Pair, b_batch, trains, tests,
         if xs is None:
             xs = spectral_initialize_pair(a_tr, b_tr, r, generator)
         x, _, it = _impl_pair(a_tr, b_tr, xs, nt, nr, cfg, ladder, u_tr,
-                              prox_kind, fused_loop=False)
+                              prox_kind, fused_loop=fused_loop)
         q = _quality_pair(a_te, b_te, x)
         return _FirstPass(x, q, it, xs, u_tr, a_n, b_n, a_norm, b_norm)
 
 
 def _batch_retry(fp: _FirstPass, rest_idx, inst_idx, trains, tests,
-                 ladder_r1: LadderArrays, nt: int, nr: int, cfg: AdmmConfig):
+                 ladder_r1: LadderArrays, nt: int, nr: int, cfg: AdmmConfig,
+                 *, fused_loop: bool):
     """Stage 2: rank-1 retry of exactly the K gathered poor
     (restart, instance) pairs (ref: inferLowRankV4_multi.m:73-77).  Each
     pair is its own group (its restart's train rows and U).
@@ -560,7 +560,7 @@ def _batch_retry(fp: _FirstPass, rest_idx, inst_idx, trains, tests,
                   fp.xs.im[rest_idx, inst_idx][:, None])
         u = _rows(fp.u_tr, rest_idx)
         x, _, it = _impl_pair(a_tr, b_tr, xs, nt, nr, cfg, ladder_r1, u,
-                              fused_loop=False)
+                              fused_loop=fused_loop)
         q = _quality_pair(a_te, b_te, x)
         return Pair(x.re[:, 0, 0], x.im[:, 0, 0]), q[:, 0], it.sum(-1)[:, 0]
 
@@ -569,8 +569,9 @@ def _refine_best(a_n: Pair, b_n, x: Pair, q, rank_one,
                  lad_normal: Optional[LadderArrays],
                  lad_r1: Optional[LadderArrays], nt: int, nr: int,
                  cfg: AdmmConfig, prox_kind: str, shared: bool,
-                 reduce: RowHook = None, m_eff: Optional[int] = None):
-    """Stage 3 of the batch scaffolds: best restart per instance (first
+                 fused_loop: bool = True, reduce: RowHook = None,
+                 m_eff: Optional[int] = None):
+    """Stage 3 of the A2 scaffolds: best restart per instance (first
     max on ties), its full-data refine on the ladder the restart's
     rank-one flag picks, the similarity rollback
     (ref: inferLowRankV4_multi.m:79-101).
@@ -579,7 +580,8 @@ def _refine_best(a_n: Pair, b_n, x: Pair, q, rank_one,
     ``shared``: the instances ride one group as lanes through one
     codebook, ``a_n`` (1, m, n) and ``b_n`` (1, B, m); else each is its
     own group, ``a_n`` (B, m, n) and ``b_n`` (B, 1, m), as a row-sharded
-    solve holds them (``reduce``, ``m_eff``: see :func:`infer_admm_pair`).
+    solve holds them (``fused_loop``, ``reduce``, ``m_eff``: see
+    :func:`infer_admm_pair`).
     Returns ``(x (B, n) before the rescale, q_max (B,), the refine's
     trips (B,))``."""
     batch, _, n = x.re.shape
@@ -599,32 +601,11 @@ def _refine_best(a_n: Pair, b_n, x: Pair, q, rank_one,
         a_n, b_n, x_max, scale_by_row=True, nt=nt, nr=nr, ladder=lad,
         u_mat=precompute_u_pair(a_n, reduce=reduce), prox_kind=prox_kind,
         mu0=cfg.mu0, rho=cfg.rho, tol_rel=cfg.tol_rel, tol_abs=cfg.tol_abs,
-        maxiter=cfg.maxiter, fused_loop=False, reduce=reduce, m_eff=m_eff)
+        maxiter=cfg.maxiter, fused_loop=fused_loop, reduce=reduce,
+        m_eff=m_eff)
     xo = _rollback(x_max, x_ref, q_max.view(lead), cfg)
     return (Pair(xo.re.reshape(batch, n), xo.im.reshape(batch, n)), q_max,
             it_ref.reshape(batch))
-
-
-def _batch_refine(fp: _FirstPass, x: Pair, q, it_sum, rank_one,
-                  lad_normal: Optional[LadderArrays],
-                  lad_r1: Optional[LadderArrays],
-                  nt: int, nr: int, cfg: AdmmConfig,
-                  prox_kind: str = "spectral_profile") -> PairAdmmResult:
-    """Stage 3 (:func:`_refine_best`) through the shared codebook, then
-    the rescale (ref: inferLowRankV4_multi.m:79-107).  ``x`` (R, B, n),
-    ``q`` and ``rank_one`` (R, B)."""
-    with span("stage.refine"):
-        a_full = Pair(fp.a_n.re[None], fp.a_n.im[None])             # (1, m, n)
-        xo, q_max, it_ref = _refine_best(
-            a_full, fp.b_n[None],
-            Pair(x.re.transpose(0, 1), x.im.transpose(0, 1)),
-            q.transpose(0, 1), rank_one.transpose(0, 1), lad_normal, lad_r1,
-            nt, nr, cfg, prox_kind, shared=True)
-        return PairAdmmResult(
-            x=scale(xo, (fp.b_norm / fp.a_norm)[:, None]), quality=q_max,
-            converged=torch.ones(q.shape[1], dtype=torch.bool,
-                                 device=q.device),
-            iters=it_sum + it_ref)
 
 
 def _random_splits(m: int, frac: float, n_restarts: int,
@@ -667,6 +648,66 @@ def _ladders(nt: int, nr: int, n: int, cfg: AdmmConfig, prox_kind: str,
     return ladder
 
 
+def _solve_batch(generator: Optional[torch.Generator], a: Pair, b_batch,
+                 nt: int, nr: int, cfg: AdmmConfig, prox_kind: str,
+                 n_restarts: Optional[int], *, m_eff: Optional[int],
+                 ladder_m: int, fused_loop: bool, splits,
+                 xs: Optional[Pair]) -> PairAdmmResult:
+    """The A2 scaffold behind both entries, for ``b_batch`` (B, m)
+    through one codebook: the first pass, the host gate and the retry
+    (neither for the nuclear prox), then the refine (:func:`_refine_best`)
+    and the rescale (ref: inferLowRankV4_multi.m:5-107).
+
+    ``m_eff``: the active row count the normalisation follows, None to
+    count it on the device.  The train ladders follow
+    floor(``ladder_m`` * cc_frac) rows, the refine's ``ladder_m``.
+    ``fused_loop``: see :func:`infer_admm_pair`.  ``splits``, ``xs``
+    (B, R, r, n): the entries' test-only draws.
+    """
+    n_restarts = cfg.n_restarts if n_restarts is None else n_restarts
+    m, n = a.re.shape
+    dev = a.re.device
+    trains, tests = _splits(splits, m, cfg, n_restarts, generator, dev)
+    if xs is not None:
+        xs = Pair(*(p.transpose(0, 1).contiguous().to(dev) for p in xs))
+    lm_tr = int(math.floor(ladder_m * cfg.cc_frac))
+    ladder = _ladders(nt, nr, n, cfg, prox_kind, dev)
+
+    with no_tf32():
+        fp = _batch_first_pass(a, b_batch, trains, tests, ladder(lm_tr, False),
+                               nt, nr, cfg, m_eff, generator, xs, prox_kind,
+                               fused_loop=fused_loop)
+        x = Pair(fp.x.re[:, :, 0].clone(), fp.x.im[:, :, 0].clone())
+        q, it = fp.q, fp.it.sum(-1)                                 # (R, B)
+        rank_one = torch.zeros_like(q, dtype=torch.bool)
+        if prox_kind != "nuclear":
+            with span("scaffold.gate"):
+                poor = (q < cfg.quality_threshold).cpu()            # host gate
+                retry = bool(poor.any())
+            if retry:
+                rest_idx, inst_idx = (i.to(dev) for i in torch.nonzero(
+                    poor, as_tuple=True))
+                xr, qr, itr = _batch_retry(fp, rest_idx, inst_idx, trains,
+                                           tests, ladder(lm_tr, True), nt, nr,
+                                           cfg, fused_loop=fused_loop)
+                x.re[rest_idx, inst_idx] = xr.re
+                x.im[rest_idx, inst_idx] = xr.im
+                q = q.index_put((rest_idx, inst_idx), qr)
+                it = it.index_put((rest_idx, inst_idx), itr, accumulate=True)
+                rank_one[rest_idx, inst_idx] = True
+        with span("stage.refine"):
+            xo, q_max, it_ref = _refine_best(
+                Pair(fp.a_n.re[None], fp.a_n.im[None]), fp.b_n[None],
+                Pair(x.re.transpose(0, 1), x.im.transpose(0, 1)),
+                q.transpose(0, 1), rank_one.transpose(0, 1),
+                ladder(ladder_m, False), ladder(ladder_m, True), nt, nr, cfg,
+                prox_kind, shared=True, fused_loop=fused_loop)
+    return PairAdmmResult(
+        x=scale(xo, (fp.b_norm / fp.a_norm)[:, None]), quality=q_max,
+        converged=torch.ones(q.shape[1], dtype=torch.bool, device=dev),
+        iters=it.sum(0) + it_ref)
+
+
 def solve_lowrank_multi_pair_batch(generator: Optional[torch.Generator],
                                    a: Pair, b_batch, nt: int, nr: int,
                                    cfg: AdmmConfig = AdmmConfig(),
@@ -694,10 +735,8 @@ def solve_lowrank_multi_pair_batch(generator: Optional[torch.Generator],
     Returns a PairAdmmResult with a leading batch axis.
     """
     _check_modes(prox_kind, eig_mode)
-    n_restarts = cfg.n_restarts if n_restarts is None else n_restarts
     batch = b_batch.shape[0]
-    m, n = a.re.shape
-    dev = a.re.device
+    m = a.re.shape[0]
 
     with span("pair.batch"):
         # active-row accounting: b == 0 rows are inactive padding by
@@ -716,38 +755,9 @@ def solve_lowrank_multi_pair_batch(generator: Optional[torch.Generator],
                 "measurements, clamp them to a tiny positive floor; "
                 "otherwise pad uniformly.")
         m_act = max(m_act, 1)
-
-        trains, tests = _splits(splits, m, cfg, n_restarts, generator, dev)
-        if xs is not None:
-            xs = Pair(xs.re.transpose(0, 1).contiguous(),
-                      xs.im.transpose(0, 1).contiguous())
-        lm_tr = int(math.floor(m_act * cfg.cc_frac))
-        ladder = _ladders(nt, nr, n, cfg, prox_kind, dev)
-
-        with no_tf32():
-            fp = _batch_first_pass(a, b_batch, trains, tests,
-                                   ladder(lm_tr, False), nt, nr, cfg, m_act,
-                                   generator, xs, prox_kind)
-            x = Pair(fp.x.re[:, :, 0].clone(), fp.x.im[:, :, 0].clone())
-            q, it = fp.q, fp.it.sum(-1)                             # (R, B)
-            rank_one = torch.zeros_like(q, dtype=torch.bool)
-            with span("scaffold.gate"):
-                poor = (q < cfg.quality_threshold).cpu()            # host gate
-                retry = prox_kind != "nuclear" and bool(poor.any())
-            if retry:
-                rest_idx, inst_idx = (i.to(dev) for i in torch.nonzero(
-                    poor, as_tuple=True))
-                xr, qr, itr = _batch_retry(fp, rest_idx, inst_idx, trains,
-                                           tests, ladder(lm_tr, True), nt, nr,
-                                           cfg)
-                x.re[rest_idx, inst_idx] = xr.re
-                x.im[rest_idx, inst_idx] = xr.im
-                q = q.index_put((rest_idx, inst_idx), qr)
-                it = it.index_put((rest_idx, inst_idx), itr, accumulate=True)
-                rank_one[rest_idx, inst_idx] = True
-            return _batch_refine(fp, x, q, it.sum(0), rank_one,
-                                 ladder(m_act, False), ladder(m_act, True),
-                                 nt, nr, cfg, prox_kind)
+        return _solve_batch(generator, a, b_batch, nt, nr, cfg, prox_kind,
+                            n_restarts, m_eff=m_act, ladder_m=m_act,
+                            fused_loop=False, splits=splits, xs=xs)
 
 
 def solve_lowrank_multi_pair(generator: Optional[torch.Generator], a: Pair,
@@ -785,71 +795,14 @@ def solve_lowrank_multi_pair(generator: Optional[torch.Generator], a: Pair,
     Returns a PairAdmmResult of scalars and x (n,).
     """
     _check_modes(prox_kind, eig_mode)
-    n_restarts = cfg.n_restarts if n_restarts is None else n_restarts
-    m, n = a.re.shape
-    dev = a.re.device
-    r = min(cfg.rank, m, n)
     with span("pair.single"):
-        a_n, b_n, a_norm, b_norm = _normalize_problem_pair(a, b, cfg.tol_abs)
-        lm_full = m if ladder_m is None else ladder_m
-        lm_tr = int(math.floor(lm_full * cfg.cc_frac))
-        ladder = _ladders(nt, nr, n, cfg, prox_kind, dev)
-        trains, tests = _splits(splits, m, cfg, n_restarts, generator, dev)
-        a_tr, a_te = _rows(a_n, trains), _rows(a_n, tests)      # (R, k, n)
-        b_tr, b_te = b_n[trains][:, None], b_n[tests][:, None]  # (R, 1, k)
-        u_tr = precompute_u_pair(a_tr)
-
-        with no_tf32():
-            with span("stage.first_pass"):
-                if xs is None:
-                    xs = spectral_initialize_pair(a_tr, b_tr, r, generator)
-                else:
-                    xs = Pair(xs.re[:, None].to(dev), xs.im[:, None].to(dev))
-                x, _, it = _impl_pair(a_tr, b_tr, xs, nt, nr, cfg,
-                                      ladder(lm_tr, False), u_tr, prox_kind)
-                q = _quality_pair(a_te, b_te, x)[:, 0]              # (R,)
-                it = it.sum(-1)[:, 0]
-                x = Pair(x.re[:, 0, 0].clone(), x.im[:, 0, 0].clone())
-            rank_one = np.zeros(n_restarts, dtype=bool)
-            if prox_kind != "nuclear":
-                with span("scaffold.gate"):
-                    poor = (q < cfg.quality_threshold).cpu().numpy()
-                if poor.any():
-                    # JAX re-solves every restart and keeps the poor ones;
-                    # solving only the poor ones gives the same x, q and
-                    # iters
-                    with span("stage.retry"):
-                        idx = torch.as_tensor(np.nonzero(poor)[0],
-                                              device=dev)
-                        xr, _, itr = _impl_pair(
-                            _rows(a_tr, idx), b_tr[idx], _rows(xs, idx), nt,
-                            nr, cfg, ladder(lm_tr, True), _rows(u_tr, idx))
-                        q[idx] = _quality_pair(_rows(a_te, idx), b_te[idx],
-                                               xr)[:, 0]
-                        x.re[idx] = xr.re[:, 0, 0]
-                        x.im[idx] = xr.im[:, 0, 0]
-                        it[idx] += itr.sum(-1)[:, 0]
-                    rank_one = poor
-
-            with span("stage.refine"):
-                with span("scaffold.select"):
-                    j = int(torch.argmax(q))                        # first max
-                    q_max = q[j]
-                    x_max = Pair(x.re[j][None, None, None],
-                                 x.im[j][None, None, None])
-                a_full = Pair(a_n.re[None], a_n.im[None])           # (1, m, n)
-                x_ref, _, _, it_ref = infer_admm_pair(
-                    a_full, b_n[None, None], x_max, scale_by_row=True, nt=nt,
-                    nr=nr, ladder=ladder(lm_full, bool(rank_one[j])),
-                    prox_kind=prox_kind, mu0=cfg.mu0, rho=cfg.rho,
-                    tol_rel=cfg.tol_rel, tol_abs=cfg.tol_abs,
-                    maxiter=cfg.maxiter)
-                xo = _rollback(x_max, x_ref, q_max, cfg)
-        s = b_norm / a_norm
-        return PairAdmmResult(
-            x=Pair(xo.re[0, 0, 0] * s, xo.im[0, 0, 0] * s), quality=q_max,
-            converged=torch.ones((), dtype=torch.bool, device=dev),
-            iters=it.sum() + it_ref[0, 0])
+        res = _solve_batch(
+            generator, a, b[None], nt, nr, cfg, prox_kind, n_restarts,
+            m_eff=None, ladder_m=a.re.shape[0] if ladder_m is None
+            else ladder_m, fused_loop=True, splits=splits,
+            xs=None if xs is None else Pair(xs.re[None], xs.im[None]))
+    return PairAdmmResult(Pair(res.x.re[0], res.x.im[0]), res.quality[0],
+                          res.converged[0], res.iters[0])
 
 
 def refine_lowrank_pair(a: Pair, b, x0: Pair, nt: int, nr: int,

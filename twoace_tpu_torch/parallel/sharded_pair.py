@@ -189,8 +189,7 @@ def solve_lowrank_multi_sharded_pair(mesh: Mesh,
         else:
             x0 = Pair(*(torch.as_tensor(t, dtype=torch.float32)[inst]
                         .reshape(g_, 1, r, n).to(dev) for t in xs))
-        kw = dict(prox_kind=prox_kind, fused_loop=False, reduce=red,
-                  m_eff=lm_tr)
+        kw = dict(prox_kind=prox_kind, reduce=red, m_eff=lm_tr)
         x, _, it = _impl_pair(a_tr, b_tr, x0, nt, nr, cfg,
                               ladder(lm_tr, False), u_tr, **kw)
         q_g = _quality(a_te, b_te, x, red)[:, 0]                # (G,)
@@ -251,7 +250,7 @@ def solve_lowrank_sharded_pair(mesh: Mesh, a: Pair, b, nt: int, nr: int,
                     generator=torch.Generator().manual_seed(29))
     kw = dict(nt=nt, nr=nr, ladder=lad, prox_kind=prox_kind, mu0=cfg.mu0,
               rho=cfg.rho, tol_rel=cfg.tol_rel, tol_abs=cfg.tol_abs,
-              maxiter=cfg.maxiter, fused_loop=False, reduce=red, m_eff=m)
+              maxiter=cfg.maxiter, reduce=red, m_eff=m)
     with no_tf32():
         a_n, b_n, a_norm, b_norm = _normalize(a, b, m, cfg.tol_abs, red)
         b_n = b_n[:, None]
